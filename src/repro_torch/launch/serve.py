@@ -1,0 +1,130 @@
+"""Serving launcher of the port: a LUT-Dense stack as a verified integer engine.
+
+The model (random weights from ``--seed``) is built on ``--device``, its
+truth tables are extracted, the stack is lowered to a DAIS program, and the
+program is compiled to a serving engine behind the bit-exact
+``verify_engine`` gate; then one pre-formed batch of random in-range codes
+is served ``--gen`` times and checked against ``DaisProgram.run``.
+
+``--engine pallas`` prefers the one-launch packed chain (kernel B4); a chain
+that cannot pack degrades to the fused path with an ``EnginePathWarning``,
+and ``--require-pallas`` turns that into a hard exit.  ``--engine tables``
+serves on the fused path.
+
+Float32 matmuls and convolutions are held to full precision: TF32 is
+switched off for both, so no path rounds through TF32.
+
+Usage (the paper's JSC-HLF model at its real widths)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine pallas \\
+        --lut-dims 16,20,5 --lut-hidden 8 --batch 16600 --gen 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+
+def build_lut_stack(dims, hidden: int, *, device, generator):
+    """The LUT-Dense stack of ``dims`` with batch-norm on the first layer,
+    as ``benchmarks/table2_jsc_hlf.py`` builds the JSC-HLF model."""
+    from repro_torch.core.lut_layers import LUTDense
+
+    return [LUTDense(ci, co, hidden=hidden, use_batchnorm=(k == 0),
+                     device=device, generator=generator)
+            for k, (ci, co) in enumerate(zip(dims[:-1], dims[1:]))]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--engine", choices=("tables", "pallas"), default="tables",
+                    help="tables: fused per-stage engine; pallas: the "
+                         "one-launch packed chain (kernel B4) preferred")
+    ap.add_argument("--model", choices=("lut-stack",), default="lut-stack")
+    ap.add_argument("--lut-dims", default="16,20,5",
+                    help="comma-separated layer widths of the LUT-Dense stack")
+    ap.add_argument("--lut-hidden", type=int, default=8)
+    ap.add_argument("--in-f", type=int, default=4,
+                    help="fractional bits of the request input grid")
+    ap.add_argument("--in-i", type=int, default=2,
+                    help="integer bits of the request input grid")
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--gen", type=int, default=8,
+                    help="request batches to serve")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--require-pallas", action="store_true",
+                    help="imply --engine pallas and exit unless the packed "
+                         "chain actually compiled")
+    args = ap.parse_args(argv)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.require_pallas:
+        args.engine = "pallas"
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but no CUDA device is available")
+
+    from repro_torch.core.lower import compile_sequential
+    from repro_torch.kernels.lut_serve import input_code_bounds
+    from repro_torch.serve.api import EngineRequirementError, EngineSpec, build
+
+    dims = [int(d) for d in args.lut_dims.split(",")]
+    if len(dims) < 2:
+        raise SystemExit("--lut-dims needs at least in,out (e.g. 16,5)")
+    gen = torch.Generator().manual_seed(args.seed)
+    t0 = time.monotonic()
+    layers = build_lut_stack(dims, args.lut_hidden, device=device, generator=gen)
+    prog = compile_sequential(layers, args.in_f, args.in_i)
+    t_lower = time.monotonic() - t0
+
+    spec = EngineSpec(engine="pallas" if args.engine == "pallas" else "fused",
+                      require="pallas" if args.require_pallas else None,
+                      verify="full", n_random=2048, seed=args.seed)
+    try:
+        built = build(prog, spec, device=device)
+    except EngineRequirementError as e:
+        raise SystemExit(str(e))
+    engine, gate = built.engine, built.attestation
+    pk = (f" launches={engine.n_launches} "
+          f"packed_table_bytes={engine.packed_table_bytes}"
+          if engine.path == "pallas" else "")
+    print(f"[serve] model=lut-stack dims={dims} instrs={prog.n_instrs()} "
+          f"path={engine.path} groups={engine.n_groups} "
+          f"dtype={str(engine.dtype).replace('torch.', '')} "
+          f"device={device}{pk}")
+    print(f"[serve] bit-exact gate PASSED: {gate['random']} random + "
+          f"{gate['exhaustive']} exhaustive rows vs DaisProgram.run "
+          f"(lower {t_lower:.2f}s, gate {built.timings['gate_s']:.2f}s)")
+
+    lo, hi = input_code_bounds(prog)
+    rng = np.random.default_rng(args.seed)
+    codes = rng.integers(lo, hi + 1, (args.batch, engine.n_inputs), np.int64)
+    x = torch.as_tensor(codes, device=device).to(engine.dtype)
+    engine.run(x)                                   # warm
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    n_batches = max(args.gen, 1)
+    t0 = time.monotonic()
+    for _ in range(n_batches):
+        out = engine.run(x)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    ref = prog.run(codes)
+    if not np.array_equal(out.cpu().numpy().astype(np.int64), ref):
+        raise SystemExit("[serve] engine output diverged from DaisProgram.run")
+    print(f"[serve] {n_batches} batches x {args.batch} rows: "
+          f"{dt / n_batches * 1e3:.3f} ms/batch  "
+          f"({n_batches * args.batch / dt:,.0f} rows/s) on {device}")
+    print(f"[serve] sample output codes (grid f={engine.output_f}): "
+          f"{out[0].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

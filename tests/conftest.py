@@ -14,3 +14,5 @@ sys.path.insert(0, os.path.dirname(__file__))  # for _hyp_compat
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (dry-runs, full sweeps)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA sm_90 card (H100); skips without one")
