@@ -13,13 +13,18 @@ go through a WRAP quantizer and outputs through a SAT quantizer, each with one
 The module keeps the reference's parameter keys and layouts: ``w0``/``b0``/
 ``w_out`` are ``(C_in, C_out, H)``, ``b_out`` and the quantizer widths
 ``(C_in, C_out)``, BN stats ``(C_in, C_out)``; the transpose to the kernel's
-``(C_in, H, C_out)`` happens at the kernel call.  This slice ports the eval
-forward; train-mode BN and the conv wrappers wait for later slices.
+``(C_in, H, C_out)`` happens at the kernel call.
+
+``forward`` follows ``module.training``.  With ``use_fused`` it goes through
+the fused pair (kernel B2 forward, kernel B3 backward, ``kernels/ops.py``),
+except in train mode with batch-norm, whose batch statistics need the
+pre-quantization activations: that combination takes the einsum path, as in
+the reference.  The conv wrappers wait for a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,7 +47,8 @@ def _quantizer(cfg: QuantConfig, shape, device) -> nn.ParameterDict:
 
 
 class LUTDense(nn.Module):
-    """LUT-Dense layer; ``forward(x)`` is the eval forward ``-> (y, Aux)``.
+    """LUT-Dense layer; ``forward(x) -> (y, Aux)`` in the module's train or
+    eval mode (eval after construction).
 
     Weights are drawn from ``generator`` (no global RNG) on the generator's
     device and then moved to ``device``, so one seed gives one set of weights
@@ -54,7 +60,7 @@ class LUTDense(nn.Module):
                  use_batchnorm: bool = False,
                  q_in: QuantConfig = Q_IN_DEFAULT,
                  q_out: QuantConfig = Q_OUT_DEFAULT,
-                 use_fused: bool = False, *,
+                 use_fused: bool = False, bn_momentum: float = 0.99, *,
                  device="cuda", generator: torch.Generator):
         super().__init__()
         if activation not in ("tanh", "relu"):
@@ -65,6 +71,7 @@ class LUTDense(nn.Module):
         self.use_batchnorm = use_batchnorm
         self.cfg_in, self.cfg_out = q_in, q_out
         self.use_fused = use_fused
+        self.bn_momentum = bn_momentum
         ci, co, h = c_in, c_out, hidden
 
         def normal(*shape):
@@ -122,12 +129,15 @@ class LUTDense(nn.Module):
         return ebops_lut(bitwidth(self.q_in, self.cfg_in),
                          bitwidth(self.q_out, self.cfg_out))
 
-    # ------------------------------------------------------ fused kernel B2
-    def kernel_args(self) -> Tuple[torch.Tensor, ...]:
-        """``(w0, b0, w_out, b_out, f_in, i_in, f_out, i_out)`` as kernel B2
-        takes them: weights transposed to (C_in, H, C_out), BN folded into
-        the output projection from its moving stats, rounded widths
-        broadcast to (C_in, C_out), all contiguous float32."""
+    # ------------------------------------------------- fused kernels B2/B3
+    def kernel_args(self, train: bool = False) -> Tuple[torch.Tensor, ...]:
+        """``(w0, b0, w_out, b_out, f_in, i_in, f_out, i_out)`` as kernels
+        B2/B3 take them: weights transposed to (C_in, H, C_out), BN folded
+        into the output projection from its moving stats, STE-rounded widths
+        broadcast to (C_in, C_out), all contiguous float32.  With ``train``
+        they stay attached to the parameters, so gradients reach ``w0`` /
+        ``b0`` / ``w_out`` through the transpose and the bit-width
+        parameters through the clip and ``round_ste``; else detached."""
         if self.n_hidden_layers != 1 or self.activation != "tanh":
             raise NotImplementedError("fused kernel covers the paper default "
                                       "(1 hidden tanh layer)")
@@ -136,51 +146,72 @@ class LUTDense(nn.Module):
             raise NotImplementedError("fused kernel covers the paper default "
                                       "quantizers (signed WRAP in, signed "
                                       "SAT out)")
-        w0 = self.w0.detach().permute(0, 2, 1)              # (Ci, H, Co)
-        b0 = self.b0.detach().permute(0, 2, 1)
-        wo = self.w_out.detach().permute(0, 2, 1)
-        bo = self.b_out.detach()
+        w0 = self.w0.permute(0, 2, 1)                       # (Ci, H, Co)
+        b0 = self.b0.permute(0, 2, 1)
+        wo = self.w_out.permute(0, 2, 1)
+        bo = self.b_out
         if self.use_batchnorm:
-            scale, bias = (a.detach() for a in self.bn_affine())
+            scale, bias = self.bn_affine()
             wo = wo * scale[:, None, :]
             bo = bo * scale + bias
         grid = (self.c_in, self.c_out)
-        fi, ii = ste_bits(self.q_in, self.cfg_in)
-        fo, io = ste_bits(self.q_out, self.cfg_out)
+        fi, ii = ste_bits(self.q_in, self.cfg_in, train=train)
+        fo, io = ste_bits(self.q_out, self.cfg_out, train=train)
         fi, ii, fo, io = (torch.broadcast_to(a, grid) for a in (fi, ii, fo, io))
-        return tuple(a.float().contiguous()
-                     for a in (w0, b0, wo, bo, fi, ii, fo, io))
+        args = tuple(a.float().contiguous() for a in (w0, b0, wo, bo, fi, ii, fo, io))
+        return args if train else tuple(a.detach() for a in args)
 
-    def apply_fused(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval forward through kernel B2 (``kernels/ops.lut_dense``)."""
+    def _fused_forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
         from repro_torch.kernels import ops
 
         lead = x.shape[:-1]
         xf = x.reshape(-1, self.c_in).float().contiguous()
-        y = ops.lut_dense(xf, *self.kernel_args())
+        y = ops.lut_dense(xf, *self.kernel_args(train=train))
         return y.reshape(*lead, self.c_out)
 
+    def apply_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval forward through kernel B2 (``kernels/ops.lut_dense``)."""
+        return self._fused_forward(x, train=False)
+
     # ---------------------------------------------------------------- forward
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Aux]:
+    def forward(self, x: torch.Tensor, *, fused: Optional[bool] = None
+                ) -> Tuple[torch.Tensor, Aux]:
+        """``fused`` overrides ``use_fused`` for this call (the train step's
+        ``lut_use_fused`` routes a stack without changing its layers)."""
         if x.shape[-1] != self.c_in:
             raise ValueError(f"expected (..., {self.c_in}), got {tuple(x.shape)}")
-        if self.training:
-            raise NotImplementedError("the train-mode forward waits for the "
-                                      "training slice; call .eval()")
+        train = self.training
+        fused = self.use_fused if fused is None else fused
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        if self.use_fused:
-            return self.apply_fused(x), Aux(ebops=self._ebops(), aux_loss=zero)
-        out = torch.sum(self.cell_outputs(x), dim=-2)  # Σ over C_in — Eq. (1)
-        return out, Aux(ebops=self._ebops(), aux_loss=zero)
+        # BN + train needs batch-wide statistics -> einsum fallback
+        if fused and not (self.use_batchnorm and train):
+            return (self._fused_forward(x, train=train),
+                    Aux(ebops=self._ebops(), aux_loss=zero))
+        cells, updates = self._cells(x, train)
+        out = torch.sum(cells, dim=-2)                 # Σ over C_in — Eq. (1)
+        return out, Aux(ebops=self._ebops(), aux_loss=zero, updates=updates)
 
     def cell_outputs(self, x: torch.Tensor) -> torch.Tensor:
         """Per-cell SAT-quantized L-LUT outputs (..., C_in, C_out) of the eval
         (einsum-path) forward, before the Σ over C_in."""
+        return self._cells(x, False)[0]
+
+    def _cells(self, x: torch.Tensor, train: bool):
+        """Einsum-path cell outputs and the BN moving-stat updates (train)."""
         # Alg. 1 lines 1-2: broadcast to (..., C_in, C_out), input-quantize
         xb = x[..., :, None].expand(*x.shape, self.c_out)
-        xq = fake_quant(self.q_in, xb, self.cfg_in)
+        xq = fake_quant(self.q_in, xb, self.cfg_in, train=train)
         y = self.cell_mlp(xq)
+        updates = {}
         if self.use_batchnorm:
-            y = ((y - self.bn_mean) * torch.rsqrt(self.bn_var + 1e-5)
-                 * self.bn_scale + self.bn_bias)
-        return fake_quant(self.q_out, y, self.cfg_out)
+            if train:
+                axes = tuple(range(y.dim() - 2))
+                mean = torch.mean(y, dim=axes)
+                var = torch.var(y, dim=axes, correction=0)   # population, as jnp.var
+                m = self.bn_momentum
+                updates["bn_mean"] = m * self.bn_mean + (1 - m) * mean.detach()
+                updates["bn_var"] = m * self.bn_var + (1 - m) * var.detach()
+            else:
+                mean, var = self.bn_mean, self.bn_var
+            y = (y - mean) * torch.rsqrt(var + 1e-5) * self.bn_scale + self.bn_bias
+        return fake_quant(self.q_out, y, self.cfg_out, train=train), updates

@@ -1,4 +1,4 @@
-"""HGQ fixed-point quantizers, eval subset (port of ``repro.core.quant``).
+"""HGQ fixed-point quantizers (port of ``repro.core.quant``).
 
 A quantized value with sign bit ``k`` (0/1), integer bits ``i`` and
 fractional bits ``f`` lives on the grid ``2**-f * Z`` restricted to
@@ -7,19 +7,27 @@ WRAP wraps out-of-range values modulo the grid span (dropping carry bits in
 hardware), SAT clamps them, and an element whose width is ``<= 0`` is pruned
 to exactly 0.
 
-Only the eval forward lives here: bit-widths are clipped and rounded with
-gradients stopped.  The trainable surrogate gradients wait for the training
-slice.  :func:`quantize_to_int` / :func:`int_to_float` are the bit-exact
-numpy path shared by truth-table extraction and the DAIS interpreter.
+Training keeps the bit-widths trainable: they are clipped (:func:`clip_tie`,
+whose gradient splits ties at a bound as ``jnp.clip``'s does) and rounded
+with a straight-through estimator (:class:`RoundSTE`), and
+:class:`FakeQuant` carries the analytic surrogate gradients of ``_fq_bwd``
+for ``x``, ``f`` and ``i``.  On a CUDA tensor the forward of
+:class:`FakeQuant` is kernel B1 (``kernels/fake_quant.py``); its backward is
+plain PyTorch, as the reference has no kernel for it.
+:func:`quantize_to_int` / :func:`int_to_float` are the bit-exact numpy path
+shared by truth-table extraction and the DAIS interpreter.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+LOG2 = math.log(2.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,24 +80,158 @@ def _fq_eval(x: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
     return torch.where(width > 0.0, q, torch.zeros_like(q))
 
 
-def ste_bits(qp: dict, cfg: QuantConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Clipped and rounded ``(f, i)`` with gradients stopped (eval widths)."""
-    f = torch.round(torch.clamp(qp["f"].detach(), cfg.min_f, cfg.max_f))
-    i = torch.round(torch.clamp(qp["i"].detach(), cfg.min_i, cfg.max_i))
+class _ClipTie(torch.autograd.Function):
+    """``min(max(x, lo), hi)`` whose gradient is 1 inside, 0 outside and 1/2
+    exactly on a bound, as ``jax.grad`` of ``jnp.clip`` / ``jnp.maximum``
+    gives it (``torch.clamp`` gives 1 there)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.lo, ctx.hi = lo, hi
+        y = x
+        if lo is not None:
+            y = torch.clamp(y, min=lo)
+        if hi is not None:
+            y = torch.clamp(y, max=hi)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        w = torch.ones_like(x)
+        if ctx.lo is not None:
+            w = torch.where(x < ctx.lo, 0.0, torch.where(x == ctx.lo, 0.5, w))
+        if ctx.hi is not None:
+            w = torch.where(x > ctx.hi, 0.0, torch.where(x == ctx.hi, 0.5, w))
+        return g * w, None, None
+
+
+def clip_tie(x: torch.Tensor, lo: Optional[float], hi: Optional[float]) -> torch.Tensor:
+    """Clip with the reference's tie-splitting gradient (see :class:`_ClipTie`)."""
+    return _ClipTie.apply(x, lo, hi)
+
+
+class RoundSTE(torch.autograd.Function):
+    """``torch.round`` (half to even) forward, identity backward.
+
+    Written as a Function because ``x + (round(x) - x).detach()`` does not
+    give back ``round(x)`` exactly for every float."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    return RoundSTE.apply(x)
+
+
+def _fq_forward(x, f, i, signed, overflow):
+    """Kernel B1 on a CUDA tensor, :func:`_fq_eval` on a CPU tensor."""
+    from repro_torch.kernels.fake_quant import fake_quant_fused
+
+    return fake_quant_fused(x.contiguous(), f, i, signed=signed, overflow=overflow)
+
+
+def _fq_bwd(x, f, i, signed: bool, overflow: str, g):
+    """Surrogate VJP of the fake-quantizer (``repro.core.quant._fq_bwd``)."""
+    scale = torch.exp2(-f)
+    hi = torch.exp2(i) - scale
+    lo = -torch.exp2(i) if signed else torch.zeros_like(hi)
+    rounded = torch.round(x / scale) * scale
+    clipped_hi = rounded > hi
+    clipped_lo = rounded < lo
+    width = i + f + (1.0 if signed else 0.0)
+    alive = width > 0.0
+    zero = torch.zeros_like(g)
+    if overflow == "SAT":
+        # STE inside the representable range, zero outside
+        dx = torch.where(alive & ~(clipped_hi | clipped_lo), g, zero)
+        df = torch.where(clipped_hi, LOG2 * scale, LOG2 * (x - rounded))
+        df = torch.where(clipped_lo, torch.zeros_like(df), df)
+        p2i = torch.exp2(i)
+        di = torch.where(clipped_hi, LOG2 * p2i, torch.zeros_like(rounded))
+        di = torch.where(clipped_lo, -LOG2 * p2i, di)
+    else:  # WRAP: a wrap is invisible to the loss surface, so no di
+        dx = torch.where(alive, g, zero)
+        df = LOG2 * (x - rounded)
+        di = torch.zeros_like(df)
+    df = torch.where(alive, df * g, torch.zeros_like(df))
+    di = torch.where(alive, di * g, torch.zeros_like(di))
+    return dx, _reduce_to_shape(df, f.shape), _reduce_to_shape(di, i.shape)
+
+
+def _reduce_to_shape(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum a broadcast gradient back to its parameter's ``shape``."""
+    shape = tuple(shape)
+    if tuple(g.shape) == shape:
+        return g
+    extra = g.dim() - len(shape)
+    if extra > 0:
+        g = torch.sum(g, dim=tuple(range(extra)))
+    axes = tuple(a for a, (gs, ss) in enumerate(zip(g.shape, shape)) if gs != ss)
+    if axes:
+        g = torch.sum(g, dim=axes, keepdim=True)
+    return g.reshape(shape)
+
+
+class FakeQuant(torch.autograd.Function):
+    """Fake-quant with integer-valued ``(f, i)`` tensors and the analytic
+    surrogate VJP (``repro.core.quant._fq_core``).  ``f``/``i`` broadcast
+    against ``x``; their gradients are reduced back to their own shapes."""
+
+    @staticmethod
+    def forward(ctx, x, f, i, signed: bool, overflow: str):
+        ctx.save_for_backward(x, f, i)
+        ctx.signed, ctx.overflow = signed, overflow
+        return _fq_forward(x, f, i, signed, overflow)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, f, i = ctx.saved_tensors
+        return (*_fq_bwd(x, f, i, ctx.signed, ctx.overflow, g), None, None)
+
+
+def fq_surrogate(x: torch.Tensor, f: torch.Tensor, i: torch.Tensor, *,
+                 signed: bool = True, overflow: str = "SAT") -> torch.Tensor:
+    """Fake-quant with integer-valued ``(f, i)`` tensors and the surrogate
+    VJP attached: the building block of the einsum train path and of
+    ``kernels/ref.lut_dense_train_ref``."""
+    return FakeQuant.apply(x, f, i, signed, overflow)
+
+
+def ste_bits(qp: dict, cfg: QuantConfig, *, train: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clipped and STE-rounded ``(f, i)``, as :func:`fake_quant` derives them
+    from the continuous parameters; ``train=False`` stops their gradients
+    (frozen deployment widths)."""
+    f = round_ste(clip_tie(qp["f"], cfg.min_f, cfg.max_f))
+    i = round_ste(clip_tie(qp["i"], cfg.min_i, cfg.max_i))
+    if not train:
+        f, i = f.detach(), i.detach()
     return f, i
 
 
-def fake_quant(qp: dict, x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
-    """Eval-mode projection of ``x`` onto the grid described by ``qp``."""
-    f, i = ste_bits(qp, cfg)
-    return _fq_eval(x.float(), f, i, cfg.signed, cfg.overflow).to(x.dtype)
+def fake_quant(qp: dict, x: torch.Tensor, cfg: QuantConfig, *,
+               train: bool = True) -> torch.Tensor:
+    """Quantize ``x`` on the fixed-point grid described by ``qp``.
+
+    The forward is always a true fixed-point projection; with ``train`` the
+    gradients reach the continuous bit-width parameters through the STE."""
+    f, i = ste_bits(qp, cfg, train=train)
+    return FakeQuant.apply(x.float(), f, i, cfg.signed, cfg.overflow).to(x.dtype)
 
 
 def bitwidth(qp: dict, cfg: QuantConfig) -> torch.Tensor:
-    """Effective physical bit-width per parameter element (>= 0)."""
+    """Effective physical bit-width per parameter element (>= 0, STE-rounded)."""
     f, i = ste_bits(qp, cfg)
     k = 1.0 if cfg.signed else 0.0
-    return torch.clamp(f + i + k, min=0.0)
+    return clip_tie(f + i + k, 0.0, None)
 
 
 def int_bits(qp: dict, cfg: QuantConfig) -> Tuple[np.ndarray, np.ndarray]:

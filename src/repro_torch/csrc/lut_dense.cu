@@ -19,41 +19,16 @@
 // trades exactness for speed: the point of this kernel is to agree with the
 // plain PyTorch version (kernels/ref.py::lut_dense_ref) code for code.
 //
-// Exactness rules:
-//  * rintf (round half to even, as jnp.round / torch.round), not roundf;
-//  * WRAP is a floor-mod (jnp.mod / torch.remainder): fmodf, then shift a
-//    remainder whose sign differs from the divisor's by one span;
-//  * powers of two come from ldexpf, exact for integer exponents;
-//  * x / scale is an IEEE division (no --use_fast_math, whose approximate
-//    tanhf would also move table-boundary codes);
-//  * products and sums use __fmul_rn / __fadd_rn so nvcc cannot contract
-//    them into FMAs the plain version does not do, and the sums run in the
-//    plain version's order: sum over h, then + b_out, then SAT, then += over j.
+// Exactness: the quantizer grid is fq.cuh's, shared with B1 and B3;
+// products and sums use __fmul_rn / __fadd_rn so nvcc cannot contract them
+// into FMAs the plain version does not do, and the sums run in the plain
+// version's order: sum over h, then + b_out, then SAT, then += over j.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fq.cuh"
+
 namespace {
-
-__device__ __forceinline__ float fq_wrap(float x, float f, float i) {
-  const float scale = ldexpf(1.0f, -static_cast<int>(f));
-  const float lo = -ldexpf(1.0f, static_cast<int>(i));
-  const float span = ldexpf(1.0f, static_cast<int>(i) + 1);
-  float q = __fmul_rn(rintf(__fdiv_rn(x, scale)), scale);
-  float r = fmodf(__fsub_rn(q, lo), span);
-  if (r != 0.0f && ((r < 0.0f) != (span < 0.0f))) r = __fadd_rn(r, span);
-  q = __fadd_rn(lo, r);
-  return (f + i + 1.0f > 0.0f) ? q : 0.0f;
-}
-
-__device__ __forceinline__ float fq_sat(float x, float f, float i) {
-  const float scale = ldexpf(1.0f, -static_cast<int>(f));
-  const float hi = __fsub_rn(ldexpf(1.0f, static_cast<int>(i)), scale);
-  const float lo = -ldexpf(1.0f, static_cast<int>(i));
-  float q = __fmul_rn(rintf(__fdiv_rn(x, scale)), scale);
-  q = q < lo ? lo : q;          // max then min, as jnp.clip
-  q = q > hi ? hi : q;
-  return (f + i + 1.0f > 0.0f) ? q : 0.0f;
-}
 
 __global__ void lut_dense_forward_kernel(
     const float* __restrict__ x, const float* __restrict__ w0,
@@ -69,7 +44,7 @@ __global__ void lut_dense_forward_kernel(
   float acc = 0.0f;
   for (int j = 0; j < c_in; ++j) {
     const int cell = j * c_out + o;
-    const float xq = fq_wrap(x[static_cast<long long>(b) * c_in + j], fi[cell], ii[cell]);
+    const float xq = fq::wrap(x[static_cast<long long>(b) * c_in + j], fi[cell], ii[cell]);
     float y = 0.0f;
     for (int h = 0; h < hidden; ++h) {
       const int w = (j * hidden + h) * c_out + o;
@@ -77,7 +52,7 @@ __global__ void lut_dense_forward_kernel(
       y = __fadd_rn(y, __fmul_rn(a, wo[w]));
     }
     y = __fadd_rn(y, bo[cell]);
-    acc = __fadd_rn(acc, fq_sat(y, fo[cell], io[cell]));
+    acc = __fadd_rn(acc, fq::sat(y, fo[cell], io[cell]));
   }
   out[t] = acc;
 }

@@ -8,6 +8,12 @@ shapes.  Seeds cannot carry weights across, because ``jax.random`` and
 torch's generators differ.  DAIS programs cross as
 ``DaisProgram.to_arrays()`` / ``from_arrays()`` (wire format v2), which the
 port reads unchanged.
+
+A stack crosses as ``{"l0": layer dict, "l1": ...}``.  The Adam state
+crosses as the reference's ``{"m": stack dict, "v": stack dict, "step"}``;
+the reference keeps moments for the BN ``bn_mean`` / ``bn_var`` too, which
+are buffers in the port and always zero in the reference (their gradient is
+zero), so they are dropped on the way in and written as zeros on the way out.
 """
 
 from __future__ import annotations
@@ -62,3 +68,56 @@ def lut_dense_params_to_numpy(module: LUTDense) -> Dict:
         else:
             d[key] = a
     return d
+
+
+def stack_params_from_numpy(layers, d: Dict):
+    """Load a reference stack dict (``{"l0": ..., "l1": ...}``) into ``layers``."""
+    if set(d) != {f"l{k}" for k in range(len(layers))}:
+        raise KeyError(f"stack keys {sorted(d)} do not match {len(layers)} layers")
+    for k, layer in enumerate(layers):
+        lut_dense_params_from_numpy(layer, d[f"l{k}"])
+    return layers
+
+
+def stack_params_to_numpy(layers) -> Dict:
+    return {f"l{k}": lut_dense_params_to_numpy(layer) for k, layer in enumerate(layers)}
+
+
+def _path(k: int, key: str, sub) -> str:
+    return f"l{k}/{key}" + (f"/{sub}" if sub else "")
+
+
+def opt_state_from_numpy(layers, d: Dict) -> Dict:
+    """The reference's Adam state as the port's (flat, reference paths)."""
+    from repro_torch.train.steps import named_params
+
+    params = named_params(layers)
+    out = {"m": {}, "v": {}, "step": torch.tensor(int(np.asarray(d["step"])),
+                                                  dtype=torch.int32)}
+    for k, layer in enumerate(layers):
+        for key, sub, _t in _entries(layer):
+            path = _path(k, key, sub)
+            if path not in params:
+                continue                                  # BN buffers
+            for mv in ("m", "v"):
+                src = d[mv][f"l{k}"][key]
+                a = np.asarray(src[sub] if sub else src, np.float32)
+                out[mv][path] = torch.as_tensor(a).to(params[path].device)
+    return out
+
+
+def opt_state_to_numpy(layers, opt_state: Dict) -> Dict:
+    """The port's Adam state in the reference's nested form."""
+    out: Dict = {"m": {}, "v": {}, "step": np.int32(int(opt_state["step"]))}
+    for k, layer in enumerate(layers):
+        for mv in ("m", "v"):
+            dd = out[mv].setdefault(f"l{k}", {})
+            for key, sub, t in _entries(layer):
+                src = opt_state[mv].get(_path(k, key, sub))
+                a = (np.zeros(tuple(t.shape), np.float32) if src is None
+                     else src.detach().cpu().numpy().copy())
+                if sub:
+                    dd.setdefault(key, {})[sub] = a
+                else:
+                    dd[key] = a
+    return out

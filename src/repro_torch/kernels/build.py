@@ -3,8 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  Libraries land in the
 checkout's ``build/`` directory under a name that carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  :func:`build_all` starts one ``nvcc`` per source at once.
+source, of the shared headers (``csrc/*.cuh``) and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.  :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time; this module also holds the launch
 counters, one plain integer per kernel, which each wrapper increments where
@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("lut_dense", "lut_serve")
+SOURCES = ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,8 +49,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

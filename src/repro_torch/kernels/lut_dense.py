@@ -1,4 +1,5 @@
-"""Kernel B2: the eval LUT-Dense forward, and its wrapper.
+"""Kernel B2: the LUT-Dense forward, and its wrapper (the eval forward, and
+the forward of the fused train pair in ``kernels/ops.lut_dense``).
 
 Replaces the TPU kernel ``repro.kernels.lut_dense.lut_dense_fused``.  The
 CUDA source is ``csrc/lut_dense.cu`` (one thread per ``(b, o)`` output, a
@@ -33,7 +34,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def lut_dense_fused(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out):
-    """Eval-mode LUT-Dense forward; shapes as :func:`ref.lut_dense_ref`.
+    """LUT-Dense forward; shapes as :func:`ref.lut_dense_ref`.
 
     x (B, C_in); w0/b0/w_out (C_in, H, C_out); b_out and the integer-valued
     bit-width tensors (C_in, C_out), all float32.  CPU tensors take the plain

@@ -220,6 +220,9 @@ class PackedChain:
             raise ValueError(f"chain dtype must be int32 or int64, got {dtype}")
         self.packed, self.dtype = packed, dtype
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # where torch places a tensor asked for on "cuda"
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.n_in, self.n_out = packed.n_cols0, len(packed.out_cols)
         self._plain = [self._plain_stage(st) for st in packed.stages]
         self._out_cols = torch.as_tensor(packed.out_cols, device=self.device)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import _fq_eval
+from repro_torch.core.quant import LOG2, _fq_eval, fq_surrogate
 
 
 def fake_quant_ref(x: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
@@ -45,10 +45,82 @@ def lut_dense_ref(
     xb = x.float()[:, :, None].expand(b, c_in, c_out)
     xq = fake_quant_ref(xb, f_in[None], i_in[None], True, "WRAP")
     h = torch.tanh(xq[:, :, None, :] * w0[None] + b0[None])       # (B, Ci, H, Co)
-    p = h * w_out[None]
+    y = _sum_hidden(h * w_out[None]) + b_out[None]                 # (B, Ci, Co)
+    yq = fake_quant_ref(y, f_out[None], i_out[None], True, "SAT")
+    return torch.sum(yq, dim=1)                                    # (B, Co)
+
+
+def _sum_hidden(p: torch.Tensor) -> torch.Tensor:
+    """Σ over axis 2 of (B, C_in, H, C_out), one add at a time in index order."""
     y = p[:, :, 0]
     for k in range(1, p.shape[2]):
         y = y + p[:, :, k]
-    y = y + b_out[None]                                            # (B, Ci, Co)
-    yq = fake_quant_ref(y, f_out[None], i_out[None], True, "SAT")
-    return torch.sum(yq, dim=1)                                    # (B, Co)
+    return y
+
+
+def lut_dense_train_ref(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out):
+    """Differentiable train-mode oracle of the fused forward/backward pair.
+
+    The math of :func:`lut_dense_ref` built from ``core.quant.fq_surrogate``,
+    so autograd through it gives the surrogate gradients of all five weight
+    tensors and the four (integer-valued) bit-width tensors.  It holds the
+    (B, C_in, H, C_out) hidden tensor in memory; it is an oracle, not a
+    fast path.
+    """
+    b, c_in = x.shape
+    xb = x.float()[:, :, None].expand(b, c_in, w0.shape[-1])
+    xq = fq_surrogate(xb, f_in, i_in, signed=True, overflow="WRAP")
+    h = torch.tanh(xq[:, :, None, :] * w0[None] + b0[None])
+    y = _sum_hidden(h * w_out[None]) + b_out[None]
+    yq = fq_surrogate(y, f_out, i_out, signed=True, overflow="SAT")
+    return torch.sum(yq, dim=1).to(x.dtype)
+
+
+def lut_dense_bwd_ref(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, g):
+    """Plain version of kernel B3: the recompute backward of the eval forward.
+
+    Shapes as :func:`lut_dense_ref` plus the cotangent ``g`` (B, C_out).
+    Returns ``(dx, dw0, db0, dw_out, db_out, df_in, df_out, di_out)``, the
+    gradients of :func:`lut_dense_train_ref`; ``di_in`` is identically zero
+    under WRAP and left to the caller.
+    """
+    b, c_in = x.shape
+    c_out = w0.shape[-1]
+    xb = x.float()[:, :, None].expand(b, c_in, c_out)
+    # forward recompute, the expressions of lut_dense_ref
+    scale_i = torch.exp2(-f_in)
+    r_in = torch.round(xb / scale_i) * scale_i
+    alive_i = f_in + i_in + 1.0 > 0.0
+    xq = fake_quant_ref(xb, f_in[None], i_in[None], True, "WRAP")
+    h = torch.tanh(xq[:, :, None, :] * w0[None] + b0[None])       # (B, Ci, H, Co)
+    y = _sum_hidden(h * w_out[None]) + b_out[None]                 # (B, Ci, Co)
+    scale_o = torch.exp2(-f_out)
+    r_out = torch.round(y / scale_o) * scale_o
+    p2 = torch.exp2(i_out)
+    chi = r_out > p2 - scale_o
+    clo = r_out < -p2
+    alive_o = f_out + i_out + 1.0 > 0.0
+    zero = torch.zeros_like(y)
+    gb = g.float()[:, None, :].expand_as(y)
+    # SAT output-quantizer surrogate (core.quant._fq_bwd)
+    gy = torch.where(alive_o & ~(chi | clo), gb, zero)
+    dfo_s = torch.where(chi, LOG2 * scale_o, LOG2 * (y - r_out))
+    dfo_s = torch.where(clo, zero, dfo_s)
+    dio_s = torch.where(chi, LOG2 * p2, torch.where(clo, -LOG2 * p2, zero))
+    df_out = torch.sum(torch.where(alive_o, dfo_s * gb, zero), dim=0)
+    di_out = torch.sum(torch.where(alive_o, dio_s * gb, zero), dim=0)
+    # the tiny-MLP VJP
+    db_out = torch.sum(gy, dim=0)
+    gy4 = gy[:, :, None, :]
+    dw_out = torch.sum(h * gy4, dim=0)
+    gz = gy4 * w_out[None] * (1.0 - h * h)                         # (B, Ci, H, Co)
+    db0 = torch.sum(gz, dim=0)
+    dw0 = torch.sum(gz * xq[:, :, None, :], dim=0)
+    gxq = _sum_hidden(gz * w0[None])                               # (B, Ci, Co)
+    # WRAP input-quantizer surrogate
+    df_in = torch.sum(torch.where(alive_i, LOG2 * (xb - r_in) * gxq, zero), dim=0)
+    gx = torch.where(alive_i, gxq, zero)
+    dx = gx[:, :, 0]
+    for o in range(1, c_out):
+        dx = dx + gx[:, :, o]
+    return dx, dw0, db0, dw_out, db_out, df_in, df_out, di_out

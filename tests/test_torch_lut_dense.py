@@ -169,6 +169,13 @@ def test_use_fused_forward_and_errors():
     assert float(aux.ebops) > 0
     with pytest.raises(ValueError):
         m(torch.zeros(3, 7))
+    # train mode runs the fused pair with gradients attached, same forward
     m.train(True)
+    got_train, _ = m(x)
+    assert got_train.requires_grad
+    torch.testing.assert_close(got_train.detach(), want, rtol=0, atol=0)
+    # the fused pair covers the paper default only
+    deep = LUTDense(20, 5, hidden=HIDDEN, n_hidden_layers=2, use_fused=True,
+                    device="cpu", generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
-        m(x)
+        deep(x)
