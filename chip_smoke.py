@@ -11,9 +11,14 @@ line:
 
 1. device: the card's name and power limit (``nvidia-smi``) and the build;
 2. kernel B1 (fake-quant) against its plain version on the card, bit for
-   bit, in every width mode, at the train path's shape (16600, 16, 20) with
-   widths (16, 20) and at odd sizes; timed beside its bound, its plain
-   version and ``torch.fake_quantize_per_tensor_affine``;
+   bit, through ``FakeQuant``'s forward, in every width mode and layout:
+   the train path's two calls (WRAP on the expand view of a (16600, 16)
+   input to (16600, 16, 20), SAT on a contiguous (16600, 16, 20), widths
+   (16, 20)), odd sizes, expand views, a copied stride-0 middle axis, and
+   edge values and widths (inf, NaN, signed zeros, subnormals, codes at
+   the integer-wrap guard, |f| at 126 and 127); then timed with a cold L2
+   beside its bounds, its plain version and
+   ``torch.fake_quantize_per_tensor_affine``;
 3. kernel B2 (LUT-Dense forward) against its plain version at the JSC-HLF
    layer shapes 16->20 and 20->5, H=8, B=16600: code flips counted and
    bounded, both timed with CUDA events;
@@ -95,6 +100,8 @@ SHADOWED_RTOL = 1e-3
 HOST_AHEAD_CYCLES = 200_000_000
 # train steps inside the torch.profiler window
 PROFILE_STEPS = (100, 105)
+# more than the H100's 50 MB L2: B1's cold-cache timing flushes this much
+L2_FLUSH_BYTES = 64 << 20
 # published H100 SXM peaks: HBM3 bandwidth and dense FP32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -169,13 +176,45 @@ def phase_device():
     return line
 
 
-def b1_cases(rng, device):
-    """B1 inputs in every width mode: (label, x, f, i, signed, overflow).
+# B1 edge widths (f, i): both sides of the x * 2^f shortcut (|f| <= 126) and
+# of the integer-wrap guard (total width w <= 24, f >= -103, |i| <= 126)
+B1_EDGE_WIDTHS = ((-127, 127), (-126, 126), (-104, 110), (-103, 110), (-8, 9),
+                  (0, 3), (4, 2), (4, 19), (4, 20), (4, 21), (12, 11), (12, 12),
+                  (125, -120), (126, -120), (127, -121), (3, 126), (3, 127))
 
-    The train path's two quantizers first (x (16600, 16, 20), per-cell
-    widths (16, 20)), then per-tensor, per-channel, per-element and
-    trailing-broadcast widths at odd sizes, unsigned, pruned widths, and an
-    x that is not 16-byte aligned (the scalar path)."""
+
+def b1_edge_values(widths, signed):
+    """x of shape (V, len(widths)): per column, special values (+-inf, NaN,
+    +-0, subnormals) and codes c = x * 2^f at and past the wrap guard's
+    edges (2^23, 2^24 - 2^(w-1), 2^24), each also as a half-grid tie."""
+    cols = []
+    for f, i in widths:
+        w = f + i + (1 if signed else 0)
+        edges = [2.0 ** 23, 2.0 ** 24, 2.0 ** 24 - 2.0 ** (min(max(w, 1), 60) - 1),
+                 2.0 ** (min(max(w, 1), 60) - 1), 2.0 ** min(max(w, 1), 60)]
+        codes = [e + d for e in edges for d in (-1.5, -1, -0.5, 0, 0.5, 1, 1.5)]
+        codes = codes + [-c for c in codes] + [0.5, -0.5, 1.5, 2.5, 3.0, -7.5]
+        with np.errstate(over="ignore", under="ignore"):
+            vals = [np.float32(c * 2.0 ** -f) for c in codes]
+        vals += [np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40, -1e-40, 1.4e-45,
+                 -1.4e-45, 1.17549435e-38, 3.4e38, -3.4e38]
+        cols.append(np.asarray(vals, np.float32))
+    return np.stack(cols, -1)
+
+
+def b1_cases(rng, device):
+    """B1 inputs in every width mode and layout: (label, x, f, i, signed,
+    overflow).
+
+    The train path's two quantizers first: WRAP on the expand view of a
+    (16600, 16) input to (16600, 16, 20) and SAT on a contiguous (16600, 16,
+    20), both with per-cell widths (16, 20); the same WRAP on a contiguous
+    x.  Then per-tensor, per-channel, per-element and trailing-broadcast
+    widths at odd sizes (a ragged end past the last full period),
+    unsigned, pruned widths, an x that is not 16-byte aligned, expand views
+    of other periods, an x with a stride-0 axis that is not the last (copied
+    by ``core.quant._fq_forward``), and the edge values and widths of
+    ``b1_edge_values`` in all four modes."""
     import torch
 
     def widths(shape, signed):
@@ -199,8 +238,12 @@ def b1_cases(rng, device):
 
     path = (JSC_BATCH, JSC_DIMS[0], JSC_DIMS[1])
     cases = []
+    f, i = widths(path[1:], True)
+    src = values(path[:2], f[:, 0], i[:, 0])
+    cases.append(("path WRAP in (expand view)", src[:, :, None].expand(path), f, i,
+                  True, "WRAP"))
     for label, shape, wshape, signed, overflow in (
-            ("path WRAP in", path, path[1:], True, "WRAP"),
+            ("path WRAP in (contiguous)", path, path[1:], True, "WRAP"),
             ("path SAT out", path, path[1:], True, "SAT"),
             ("tensor", (4099, 7, 13), (), True, "SAT"),
             ("tensor unsigned", (4099, 7, 13), (), False, "WRAP"),
@@ -208,6 +251,7 @@ def b1_cases(rng, device):
             ("channel unsigned", (4099, 7, 13), (13,), False, "SAT"),
             ("element", (333, 7, 13), (333, 7, 13), True, "SAT"),
             ("element unsigned", (333, 7, 13), (333, 7, 13), False, "WRAP"),
+            ("element, long", (4099, 7, 13), (4099, 7, 13), True, "WRAP"),
             ("trailing", (4099, 7, 13), (7, 13), False, "SAT"),
             ("trailing lead-1", (4099, 7, 13), (1, 7, 13), True, "WRAP")):
         f, i = widths(wshape, signed)
@@ -216,47 +260,179 @@ def b1_cases(rng, device):
     four, three = (torch.tensor(v, device=device) for v in (4.0, 3.0))
     flat = values((4099 * 13 + 1,), four, three)
     cases.append(("unaligned x", flat[1:].view(4099, 13), f, i, True, "SAT"))
+    src = values((JSC_BATCH, JSC_DIMS[1]), four, three)
+    f, i = widths(JSC_DIMS[1:], True)
+    cases.append(("expand view 20->5", src[:, :, None].expand(JSC_BATCH, *JSC_DIMS[1:]),
+                  f, i, True, "WRAP"))
+    cases.append(("expand view, per-tensor unsigned", src[:, :, None].expand(
+        JSC_BATCH, JSC_DIMS[1], 7), four, three, False, "SAT"))
+    src = values((4099, 13), four, three)
+    f, i = widths((7, 13), True)
+    cases.append(("stride-0 middle axis (copied)", src[:, None, :].expand(4099, 7, 13),
+                  f, i, True, "WRAP"))
+    for signed in (True, False):
+        pairs = np.asarray(B1_EDGE_WIDTHS, np.float32)
+        x = torch.as_tensor(b1_edge_values(B1_EDGE_WIDTHS, signed), device=device)
+        x = x.repeat(37, 1)[:-1]                  # ragged against the period
+        f, i = (torch.as_tensor(pairs[:, k].copy(), device=device) for k in (0, 1))
+        for overflow in ("SAT", "WRAP"):
+            cases.append((f"edge values and widths, "
+                          f"{'signed' if signed else 'unsigned'} {overflow}", x, f, i,
+                          signed, overflow))
     return cases
 
 
-def phase_b1(device, report):
+def b1_check_cases(device):
+    """Every case of ``b1_cases`` through ``core.quant._fq_forward`` (the
+    forward of ``FakeQuant``) against the plain version, bit for bit; one B1
+    launch each."""
     import torch
-    from repro_torch.kernels.fake_quant import fake_quant_fused
+    from repro_torch.core.quant import _fq_forward
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ref import fake_quant_ref
 
     cases = b1_cases(np.random.default_rng(SEED + 4), device)
     for label, x, f, i, signed, overflow in cases:
-        got = fake_quant_fused(x, f, i, signed=signed, overflow=overflow)
+        before = ops.launch_counts()["fake_quant"]
+        got = _fq_forward(x, f, i, signed, overflow)
         torch.cuda.synchronize()
+        check(ops.launch_counts()["fake_quant"] == before + 1,
+              f"B1 {label}: not one launch")
         want = fake_quant_ref(x, f, i, signed, overflow)
-        n_bits = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        check(torch.equal(got, want) and n_bits == 0,
-              f"B1 {label}: {int((got != want).sum())} values and {n_bits} bit "
-              f"patterns differ from the plain version")
-        print(f"[B1] {label}: x {tuple(x.shape)}, widths {tuple(f.shape)}, "
-              f"{'signed' if signed else 'unsigned'} {overflow}: identical to "
-              f"the plain version, bit for bit ({x.numel()} values)")
-    # time the path's input quantizer: WRAP over (16600, 16, 20), widths (16, 20)
-    _, x, f, i, signed, overflow = cases[0]
-    ms = cuda_ms(lambda: fake_quant_fused(x, f, i, signed=signed, overflow=overflow))
-    plain_ms = cuda_ms(lambda: fake_quant_ref(x, f, i, signed, overflow))
-    # yardstick: one PyTorch call computing B1's per-tensor signed SAT mode
+        bad = got.view(torch.int32) != want.view(torch.int32)
+        n_bits = int(bad.sum())
+        if n_bits:
+            at = bad.nonzero()[:6].tolist()
+            fb, ib = (torch.broadcast_to(w, x.shape) for w in (f, i))
+            for k in at:
+                k = tuple(k)
+                print(f"[B1] {label} differs at {k}: x {float(x[k])!r}, f "
+                      f"{float(fb[k])}, i {float(ib[k])}: kernel "
+                      f"{int(got.view(torch.int32)[k]):#010x}, plain "
+                      f"{int(want.view(torch.int32)[k]):#010x}")
+        check(got.shape == x.shape and got.is_contiguous() and n_bits == 0,
+              f"B1 {label}: {n_bits} bit patterns differ from the plain version")
+        print(f"[B1] {label}: x {tuple(x.shape)} strides {x.stride()}, widths "
+              f"{tuple(f.shape)}, {'signed' if signed else 'unsigned'} {overflow}: "
+              f"identical to the plain version, bit for bit ({x.numel()} values)")
+
+
+def cuda_ms_cold(fn, pool, iters: int = 24) -> float:
+    """Mean device time of ``fn(pool[k % len(pool)])`` with a cold L2.
+
+    The inputs rotate over ``pool`` (together larger than the L2) and every
+    output of the timed loop is kept alive, so each launch writes memory
+    that no recent launch touched; the L2 is flushed before the loop.  A
+    first pass with the same allocations warms the allocator, so the timed
+    pass reuses its blocks without a cudaMalloc.  The stream sleeps first,
+    as in :func:`cuda_ms`."""
+    import torch
+
+    outs = [fn(pool[k % len(pool)]) for k in range(iters)]
+    torch.cuda.synchronize()
+    del outs
+    # overwrite more than the 50 MB L2 with an unrelated buffer
+    torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=pool[0].device).zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
+    start.record()
+    outs = [fn(pool[k % len(pool)]) for k in range(iters)]
+    end.record()
+    torch.cuda.synchronize()
+    del outs
+    return start.elapsed_time(end) / iters
+
+
+def b1_timings(device, fq, rng, tag=""):
+    """B1 timed with a cold L2 at the train path's shapes (``fq`` is a
+    ``fake_quant_fused``; a wrapper without expand-view support, as before
+    the redesign, gets no direct expand-view time).  Prints each time beside
+    its bound and returns them by name."""
+    import torch
+    from repro_torch.kernels.ref import fake_quant_ref
+
+    c_in, c_out = JSC_DIMS[0], JSC_DIMS[1]
+    shape = (JSC_BATCH, c_in, c_out)
+    n = JSC_BATCH * c_in * c_out
+    f = torch.as_tensor(rng.integers(-3, 7, (c_in, c_out)), dtype=torch.float32,
+                        device=device)
+    i = torch.as_tensor(rng.integers(-2, 5, (c_in, c_out)), dtype=torch.float32,
+                        device=device)
+    n_pool = max(2, -(-3 * L2_FLUSH_BYTES // (8 * n)))
+    pool = [torch.as_tensor(rng.normal(0, 4, shape), dtype=torch.float32, device=device)
+            for _ in range(n_pool)]
+    src_pool = [torch.as_tensor(rng.normal(0, 4, shape[:2]), dtype=torch.float32,
+                                device=device)
+                for _ in range(max(2, -(-3 * L2_FLUSH_BYTES // (4 * JSC_BATCH * c_in))))]
+    expand = lambda s: s[:, :, None].expand(shape)
     fs, is_ = 4, 3
-    lib = lambda: torch.fake_quantize_per_tensor_affine(
-        x, 2.0 ** -fs, 0, -2 ** (is_ + fs), 2 ** (is_ + fs) - 1)
-    library_ms = cuda_ms(lib)
-    mine = fake_quant_fused(x, torch.tensor(float(fs), device=device),
-                            torch.tensor(float(is_), device=device), signed=True,
-                            overflow="SAT")
-    n_lib = int((lib() != mine).sum())
-    b_ms, b_by = bound(2 * 4 * x.numel(), 15 * x.numel())
-    print(f"[B1] path shape {tuple(x.shape)} WRAP, widths {tuple(f.shape)}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
-          f"torch.fake_quantize_per_tensor_affine (per-tensor SAT, same numel) "
-          f"{library_ms:.4f} ms, differs from B1's per-tensor SAT in {n_lib} values")
-    report["fake_quant"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": library_ms}
+    f1, i1 = (torch.tensor(float(v), device=device) for v in (fs, is_))
+    t = {}
+    t["wrap_cell"] = cuda_ms_cold(lambda x: fq(x, f, i, signed=True, overflow="WRAP"), pool)
+    t["plain_wrap_cell"] = cuda_ms_cold(lambda x: fake_quant_ref(x, f, i, True, "WRAP"),
+                                        pool, iters=8)
+    t["sat_tensor"] = cuda_ms_cold(lambda x: fq(x, f1, i1, signed=True, overflow="SAT"),
+                                   pool)
+    t["library_sat_tensor"] = cuda_ms_cold(
+        lambda x: torch.fake_quantize_per_tensor_affine(
+            x, 2.0 ** -fs, 0, -2 ** (is_ + fs), 2 ** (is_ + fs) - 1), pool)
+    t["plain_sat_tensor"] = cuda_ms_cold(lambda x: fake_quant_ref(x, f1, i1, True, "SAT"),
+                                         pool, iters=8)
+    t["sat_cell"] = cuda_ms_cold(lambda x: fq(x, f, i, signed=True, overflow="SAT"), pool)
+    # every width pruned: the kernel's memory pattern with no arithmetic
+    fd, id_ = torch.full_like(f, -5.0), torch.zeros_like(i)
+    t["pruned"] = cuda_ms_cold(lambda x: fq(x, fd, id_, signed=True, overflow="WRAP"), pool)
+    t["copy_then_wrap"] = cuda_ms_cold(
+        lambda s: fq(expand(s).contiguous(), f, i, signed=True, overflow="WRAP"), src_pool)
+    if fq.__module__ and hasattr(sys.modules[fq.__module__], "x_layout"):
+        t["expand_wrap"] = cuda_ms_cold(
+            lambda s: fq(expand(s), f, i, signed=True, overflow="WRAP"), src_pool)
+        t["expand_pruned"] = cuda_ms_cold(
+            lambda s: fq(expand(s), fd, id_, signed=True, overflow="WRAP"), src_pool)
+    t["plain_expand_wrap"] = cuda_ms_cold(
+        lambda s: fake_quant_ref(expand(s), f, i, True, "WRAP"), src_pool, iters=8)
+    # same function, same inputs: B1 per-tensor SAT against the library call
+    x = pool[0]
+    mine = fq(x, f1, i1, signed=True, overflow="SAT")
+    n_lib = int((torch.fake_quantize_per_tensor_affine(
+        x, 2.0 ** -fs, 0, -2 ** (is_ + fs), 2 ** (is_ + fs) - 1) != mine).sum())
+    w_bytes = 8 * c_in * c_out
+    t["bound_contiguous"], by = bound(8 * n + w_bytes, 10 * n)
+    t["bound_expand"], by_e = bound(4 * n + 4 * JSC_BATCH * c_in + w_bytes, 10 * n)
+    t["bound_by"], t["library_differs"] = by, n_lib
+    print(f"[B1{tag}] cold L2 (inputs rotate over {n_pool} x {4 * n / 1e6:.1f} MB, "
+          f"outputs fresh), x {shape}, widths ({c_in}, {c_out}) unless per-tensor:")
+    print(f"[B1{tag}]   contiguous, per-cell WRAP: kernel {t['wrap_cell']:.5f} ms, "
+          f"plain {t['plain_wrap_cell']:.5f} ms, bound {t['bound_contiguous']:.5f} ms "
+          f"({by}); per-cell SAT kernel {t['sat_cell']:.5f} ms; all widths pruned "
+          f"(no arithmetic) {t['pruned']:.5f} ms")
+    print(f"[B1{tag}]   contiguous, per-tensor signed SAT (f={fs}, i={is_}): kernel "
+          f"{t['sat_tensor']:.5f} ms, torch.fake_quantize_per_tensor_affine "
+          f"{t['library_sat_tensor']:.5f} ms (differs in {n_lib} values), plain "
+          f"{t['plain_sat_tensor']:.5f} ms, bound {t['bound_contiguous']:.5f} ms")
+    print(f"[B1{tag}]   the path's input, expand view of {shape[:2]}, per-cell WRAP: "
+          + (f"kernel on the view {t['expand_wrap']:.5f} ms (all widths pruned "
+             f"{t['expand_pruned']:.5f} ms), " if "expand_wrap" in t
+             else "kernel on the view: not supported, ")
+          + f".contiguous() then kernel {t['copy_then_wrap']:.5f} ms, plain "
+          f"{t['plain_expand_wrap']:.5f} ms, bound {t['bound_expand']:.5f} ms ({by_e})")
+    return t
+
+
+def phase_b1(device, report):
+    from repro_torch.kernels.fake_quant import fake_quant_fused
+
+    b1_check_cases(device)
+    t = b1_timings(device, fake_quant_fused, np.random.default_rng(SEED + 6))
+    check(t["library_differs"] == 0,
+          "B1 per-tensor SAT differs from torch.fake_quantize_per_tensor_affine")
+    report["fake_quant"] = {
+        "max_abs_err": 0.0, "ms": t["wrap_cell"], "plain_ms": t["plain_wrap_cell"],
+        "bound_ms": t["bound_contiguous"], "bound_by": t["bound_by"],
+        "library_ms": t["library_sat_tensor"],
+        "sat_tensor_ms": t["sat_tensor"], "expand_ms": t["expand_wrap"],
+        "expand_bound_ms": t["bound_expand"], "copy_then_ms": t["copy_then_wrap"]}
 
 
 def phase_b2(device, report):
@@ -841,12 +1017,26 @@ def phase_synthetic(device):
               f"CMUL, SAT/WRAP epilogues) bit-exact vs the plain chain")
 
 
+def main_b1_timing() -> int:
+    """``--b1-timing``: only B1's cold-L2 timings (the same harness for two
+    trees, run from each tree's root); prints no result line."""
+    import torch
+    from repro_torch.kernels.fake_quant import fake_quant_fused
+
+    phase_device()
+    b1_timings(torch.device("cuda:0"), fake_quant_fused,
+               np.random.default_rng(SEED + 6), tag=f" {os.path.basename(REPO)}")
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--b1-timing"]:
+        return main_b1_timing()
     # reference precision: no float32 matmul or convolution rounds via TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -65,11 +65,25 @@ def init_quantizer(cfg: QuantConfig, shape: Tuple[int, ...], *,
     }
 
 
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """``2**e`` for float32 ``e``, exact where ``e`` is an integer (0 below
+    2**-149, inf above 2**127), ``torch.exp2`` elsewhere.
+
+    ``torch.exp2`` is exact at every integer on the CPU, but on the H100 it
+    misses 2**-127 (ROADMAP C7), so the plain quantizer builds the bits."""
+    k = torch.clamp(torch.nan_to_num(e), -150.0, 128.0).to(torch.int32)
+    normal = (torch.clamp(k, min=-126) + 127) << 23
+    subnormal = torch.ones_like(k) << torch.clamp(k + 149, min=0)
+    bits = torch.where(k >= -126, normal,
+                       torch.where(k >= -149, subnormal, torch.zeros_like(k)))
+    return torch.where(e == torch.round(e), bits.view(torch.float32), torch.exp2(e))
+
+
 def _fq_eval(x: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
              signed: bool, overflow: str) -> torch.Tensor:
-    scale = torch.exp2(-f)
-    hi = torch.exp2(i) - scale
-    lo = -torch.exp2(i) if signed else torch.zeros_like(hi)
+    scale = pow2(-f)
+    hi = pow2(i) - scale
+    lo = -pow2(i) if signed else torch.zeros_like(hi)
     q = torch.round(x / scale) * scale            # round half to even
     if overflow == "SAT":
         q = torch.minimum(torch.maximum(q, lo), hi)
@@ -132,10 +146,14 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fq_forward(x, f, i, signed, overflow):
-    """Kernel B1 on a CUDA tensor, :func:`_fq_eval` on a CPU tensor."""
-    from repro_torch.kernels.fake_quant import fake_quant_fused
+    """Kernel B1 on a CUDA tensor, :func:`_fq_eval` on a CPU tensor.  B1
+    reads a contiguous ``x`` or one expanded along its last axis in place
+    (``LUTDense``'s input quantizer); any other layout is copied first."""
+    from repro_torch.kernels.fake_quant import fake_quant_fused, x_layout
 
-    return fake_quant_fused(x.contiguous(), f, i, signed=signed, overflow=overflow)
+    if x_layout(x) is None:
+        x = x.contiguous()
+    return fake_quant_fused(x, f, i, signed=signed, overflow=overflow)
 
 
 def _fq_bwd(x, f, i, signed: bool, overflow: str, g):

@@ -17,9 +17,10 @@ def fake_quant_ref(x: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
                    signed: bool, overflow: str) -> torch.Tensor:
     """Fixed-point projection with integer (f, i) bit-width tensors."""
     x = x.float()
-    f = torch.broadcast_to(f, x.shape).float()
-    i = torch.broadcast_to(i, x.shape).float()
-    return _fq_eval(x, f, i, signed, overflow)
+    for w in (f, i):
+        torch.broadcast_to(w, x.shape)            # raises unless w broadcasts to x
+    # the grid's powers of two are formed at the widths' own size
+    return _fq_eval(x, f.float(), i.float(), signed, overflow)
 
 
 def lut_dense_ref(

@@ -100,18 +100,37 @@ def test_b4_synthetic_chain_matches_plain(device, dtype):
 
 
 def test_b1_bit_exact_in_every_mode(device):
+    """Every case of ``chip_smoke.b1_cases`` (width modes, expand views, a
+    copied stride-0 middle axis, edge values and widths) through
+    ``FakeQuant``'s forward: one launch each, identical bit patterns."""
     from chip_smoke import b1_cases
+    from repro_torch.core.quant import _fq_forward
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import fake_quant_ref
 
     for label, x, f, i, signed, overflow in b1_cases(np.random.default_rng(2), device):
         before = ops.launch_counts()["fake_quant"]
-        got = ops.fake_quant(x, f, i, signed=signed, overflow=overflow)
+        got = _fq_forward(x, f, i, signed, overflow)
         torch.cuda.synchronize()
-        assert ops.launch_counts()["fake_quant"] == before + 1
+        assert ops.launch_counts()["fake_quant"] == before + 1, label
         want = fake_quant_ref(x, f, i, signed, overflow)
         # every step is exact on a power-of-two grid: identical bit patterns
+        assert got.is_contiguous() and got.shape == x.shape, label
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), label
+
+
+def test_b1_reads_the_expand_view_in_place_and_refuses_other_strides(device):
+    from repro_torch.kernels import ops
+
+    src = torch.randn((999, 6), device=device) * 8
+    f = torch.full((6, 5), 3.0, device=device)
+    i = torch.full((6, 5), 2.0, device=device)
+    view = src[:, :, None].expand(999, 6, 5)
+    got = ops.fake_quant(view, f, i, signed=True, overflow="WRAP")
+    want = ops.fake_quant(view.contiguous(), f, i, signed=True, overflow="WRAP")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError, match="expanded along its last axis"):
+        ops.fake_quant(src[:, None, :].expand(999, 5, 6), f.T, i.T)
 
 
 def test_b1_rejects_a_width_shape_it_would_have_to_broadcast(device):
