@@ -23,7 +23,9 @@ line:
    layer shapes 16->20 and 20->5, H=8, B=16600: code flips counted and
    bounded, both timed with CUDA events;
 4. kernel B3 (recompute backward) against its plain version at the same
-   shapes with pruned cells, within ``B3_REL``; two launches bitwise equal;
+   shapes with pruned cells, and one cell at a time at the edge widths f =
+   +-127, i = -127, within ``B3_REL``; two launches bitwise equal; one
+   device kernel a call (profiler); no register spills at H = 8 (ptxas);
 5. the serve slice, float: the 16,20,5 JSC-HLF stack from a seeded
    generator; its eval forward must equal ``DaisProgram.run_float`` of its
    own lowering exactly, and the fused forward (kernel B2) may differ from
@@ -35,14 +37,19 @@ line:
 7. the train slice: ``make_lut_train_step`` with ``lut_use_fused=True`` on
    JSC-HLF data for ``TRAIN_STEPS`` steps at B=16600, each launching B1
    twice, B2 once and B3 once; step 1 held against the same step through
-   the plain versions (on the CPU, where the wrappers take them); a finite,
-   falling loss; then the trained model evaluated, lowered (eval forward ==
+   the plain versions (on the CPU, where the wrappers take them); the Adam
+   step counter on the card, and beta and lr from it against the CPU's, in
+   ulps; a finite, falling loss; then the trained model evaluated, lowered (eval forward ==
    ``run_float`` exactly) and served through B4 behind the gate;
 8. a seeded synthetic packed chain covering what JSC-HLF does not (sum
    stages, non-identity gathers with the zero column, in-shifts, CMUL and
    WRAP epilogues, int8/int16/int32/int64 lanes, int32 and int64 compute),
    kernel B4 against its plain version bit for bit;
 9. the ``kernels`` JSON line, then the result line.
+
+``python3 chip_smoke.py --b1-timing`` and ``--b3-timing`` print only kernel
+B1's or B3's timings (and B3's registers and SASS), and no result line, to
+compare two trees in one call.
 
 The launch counters are zeroed just before each path (phases 5-6 and phase
 7, after its step-1 comparison) and read just after it: each path must have
@@ -102,9 +109,12 @@ HOST_AHEAD_CYCLES = 200_000_000
 PROFILE_STEPS = (100, 105)
 # more than the H100's 50 MB L2: B1's cold-cache timing flushes this much
 L2_FLUSH_BYTES = 64 << 20
-# published H100 SXM peaks: HBM3 bandwidth and dense FP32 rate
+# published H100 SXM peaks: HBM3 bandwidth and dense FP32 rate; its SMs and
+# boost clock (for an instruction-count floor)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+H100_SMS = 132
+H100_BOOST_HZ = 1.98e9
 
 
 class SmokeError(Exception):
@@ -493,6 +503,43 @@ def b3_args(layer, rng, batch, device):
     return x, args, g
 
 
+# B3 edge widths, where 2^-f or 2^i leaves exp2's exact range on the card
+# (ROADMAP C7, C8).  Input cells (f_in, i_in, x range, g scale): x is drawn
+# so that the codes x * 2^f stay few and every gradient finite (at f_in =
+# -127 the WRAP span 2^128 is inf, so codes stay in {-1, 0}); output cells
+# (f_out, i_out).
+B3_EDGE_IN = ((127, -127, (-1.4, 1.4), 2.0 ** -126, 2.0 ** 20),
+              (-127, 127, (-1.4, 0.45), 2.0 ** 127, 2.0 ** -20),
+              (127, 0, (-1.4, 1.4), 2.0 ** -120, 1.0))
+B3_EDGE_OUT = ((127, -127), (-127, 127), (130, -127))
+
+
+def b3_edge_args(rng, batch, device, hidden=8):
+    """One-cell B3 inputs (C_in = C_out = 1) for every pair of an edge input
+    and an edge output width, so that each gradient tensor holds one cell
+    and the tolerance is relative to that cell's own magnitude: (label, x,
+    args, g)."""
+    import torch
+
+    cases = []
+    for f_in, i_in, (lo, hi), x_scale, g_scale in B3_EDGE_IN:
+        for f_out, i_out in B3_EDGE_OUT:
+            w = [rng.normal(0, s, (1, hidden, 1)) for s in (1.0, 0.5, 1.0)]
+            cells = [rng.normal(0, 0.2, (1, 1))] + [np.full((1, 1), v)
+                                                    for v in (f_in, i_in, f_out, i_out)]
+            args = [torch.as_tensor(a, dtype=torch.float32, device=device)
+                    for a in w + cells]
+            x = torch.as_tensor(rng.uniform(lo, hi, (batch, 1)) * x_scale,
+                                dtype=torch.float32, device=device)
+            g = torch.as_tensor(rng.normal(0, 1, (batch, 1)) * g_scale,
+                                dtype=torch.float32, device=device)
+            cases.append((f"f_in {f_in} i_in {i_in}, f_out {f_out} i_out {i_out}",
+                          x, args, g))
+    return cases
+
+
+# B3's instantiation at the path's H, by substrings of its mangled name
+B3_KERNEL = ("lut_dense_bwd_", f"ILi{HIDDEN}E")
 B3_NAMES = ("dx", "dw0", "db0", "dw_out", "db_out", "df_in", "df_out", "di_out")
 
 
@@ -502,6 +549,158 @@ def b3_max_rel_err(got, want):
             for n, a, b in zip(B3_NAMES, got, want)}
 
 
+def b3_check(label, fn, x, args, g):
+    """Kernel B3 (``fn``) twice on the same inputs against its plain version:
+    bitwise equal launches, finite, every gradient within ``B3_REL`` of the
+    plain one's largest magnitude.  Returns the errors by name."""
+    import torch
+    from repro_torch.kernels.ref import lut_dense_bwd_ref
+
+    got = fn(x, *args, g)
+    again = fn(x, *args, g)
+    torch.cuda.synchronize()
+    want = lut_dense_bwd_ref(x, *args, g)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, again))
+    check(same, f"B3 {label}: two launches on the same inputs differ")
+    rel = b3_max_rel_err(got, want)
+    worst = max(rel, key=rel.get)
+    check(all(bool(torch.isfinite(t).all()) for t in got) and rel[worst] <= B3_REL,
+          f"B3 {label}: {worst} off by {rel[worst]:.3g} of its largest "
+          f"magnitude (> {B3_REL})")
+    rel["max_abs"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    return rel
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (torch.profiler)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def ptxas_usage(name: str, kernel) -> str:
+    """The ``-Xptxas -v`` lines (registers, spills) of the kernel whose
+    mangled name contains every string of ``kernel``, from the last build
+    of ``name``."""
+    from repro_torch.kernels import build as kbuild
+
+    lines = kbuild.build_log(name).splitlines()
+    for k, ln in enumerate(lines):
+        if "Compiling entry function" in ln and all(s in ln for s in kernel):
+            got = []
+            for nxt in lines[k + 1:]:
+                if "Compiling entry function" in nxt:
+                    break
+                if "spill" in nxt or "Used" in nxt:
+                    got.append(nxt.split(" : ", 1)[-1].strip())
+            return "; ".join(got)
+    return "not in the build log"
+
+
+def b3_timings(fn, device, tag="", per_row=None):
+    """B3 (``fn``) at the JSC-HLF layer shapes, B = 16600: device ms by CUDA
+    events with the host ahead, host us per call enqueue-only (the median
+    and mean of 1000 calls timed one by one, the stream synchronized, untimed,
+    every 10 calls so that a full launch queue never holds the host)."""
+    import torch
+    from repro_torch.core.lut_layers import LUTDense
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for k, (ci, co) in enumerate(zip(JSC_DIMS[:-1], JSC_DIMS[1:])):
+        layer = LUTDense(ci, co, hidden=HIDDEN, use_batchnorm=(k == 0),
+                         device=device, generator=gen)
+        x, args, g = b3_args(layer, rng, JSC_BATCH, device)
+        ms = cuda_ms(lambda: fn(x, *args, g), iters=50)
+        host = []
+        for k in range(1010):
+            if k % 10 == 0:              # never more than 10 calls queued
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x, *args, g)
+            if k >= 10:
+                host.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        out[(ci, co)] = (ms, float(np.median(host)), float(np.mean(host)))
+        floor = ("" if per_row is None else
+                 f"; issue floor of the row loop alone {issue_floor_ms(JSC_BATCH * ci * co, per_row):.5f} ms")
+        print(f"[B3{tag}] {ci}->{co} H={HIDDEN} B={JSC_BATCH}: device {ms:.5f} ms a "
+              f"call (CUDA events, host ahead); host {np.median(host):.2f} us a call "
+              f"median, {np.mean(host):.2f} mean (enqueue only, 1000 calls){floor}")
+    return out
+
+
+def issue_floor_ms(n_rows: int, per_row: float) -> float:
+    """The least time ``n_rows`` of ``per_row`` instructions each take at
+    one warp instruction a clock on each of an SM's 4 schedulers, all SMs,
+    at the published boost clock: an instruction-count floor."""
+    return n_rows * per_row / 32 / (4 * H100_SMS * H100_BOOST_HZ) * 1e3
+
+
+# tanhf's first step, |x| * 2 / ln 2 before MUFU.EX2: one per tanh in SASS
+TANH_MARK = "2.8853900432586669922"
+
+
+def sass_hot_loop(name: str, kernel, hidden: int) -> str:
+    """SASS of the kernel whose mangled name contains every string of
+    ``kernel`` in the built library ``name`` (``cuobjdump -sass``): its
+    instruction count, and the innermost loop that evaluates whole rows of
+    tanh (``TANH_MARK``, ``hidden`` of them a (b, j, o)), with its
+    instructions per (b, j, o).  The count is static: it includes any code
+    in the loop that the common path branches around.  Returns the text
+    and that count (None where there is no such loop)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build as kbuild
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "cuobjdump not found", None
+    text = subprocess.run([tool, "-sass", str(kbuild.library_path(name))],
+                          capture_output=True, text=True, timeout=300).stdout
+    funcs = [f for f in text.split("Function : ")[1:]
+             if all(k in f.split("\n", 1)[0] for k in kernel)]
+    if not funcs:
+        return f"no function matching {kernel}", None
+    labels, ins = {}, []
+    for ln in funcs[0].splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            labels[m.group(1)] = len(ins)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2)))
+    addr = {a: k for k, (a, _) in enumerate(ins)}
+    loops = []
+    for k, (_, op) in enumerate(ins):
+        m = re.search(r"\bBRA\b.*?(?:0x([0-9a-f]+)|`\((\.L_x_\d+)\))", op)
+        if not m:
+            continue
+        tgt = addr.get(int(m.group(1), 16)) if m.group(1) else labels.get(m.group(2))
+        if tgt is not None and tgt <= k:
+            body = [o for _, o in ins[tgt:k + 1]]
+            n_tanh = sum(TANH_MARK in o for o in body)
+            if n_tanh >= hidden:
+                loops.append((k + 1 - tgt, n_tanh, sum("SHFL" in o for o in body),
+                              sum("MUFU" in o for o in body)))
+    if not loops:
+        return f"{len(ins)} instructions; no loop evaluates a row of tanh", None
+    n, n_tanh, n_shfl, n_mufu = min(loops)
+    rows = n_tanh / hidden
+    return (f"{len(ins)} instructions; innermost loop over rows: {n} instructions "
+            f"(static), {n_tanh} tanh = {rows:g} rows of (b, j, o), {n_mufu} MUFU, "
+            f"{n_shfl} shuffles: {n / rows:.1f} instructions per (b, j, o)"), n / rows
+
+
 def phase_b3(device, report):
     import torch
     from repro_torch.core.lut_layers import LUTDense
@@ -509,6 +708,10 @@ def phase_b3(device, report):
     from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
     from repro_torch.kernels.ref import lut_dense_bwd_ref, lut_dense_ref
 
+    usage = ptxas_usage("lut_dense_bwd", B3_KERNEL)
+    print(f"[B3] ptxas, H={HIDDEN}: {usage}")
+    check(" 0 bytes spill stores" in usage and " 0 bytes spill loads" in usage,
+          f"B3 at H={HIDDEN} spills registers: {usage}")
     gen = torch.Generator().manual_seed(SEED + 5)
     rng = np.random.default_rng(SEED + 5)
     rows = []
@@ -516,23 +719,14 @@ def phase_b3(device, report):
         layer = LUTDense(ci, co, hidden=HIDDEN, use_batchnorm=(k == 0),
                          device=device, generator=gen)
         x, args, g = b3_args(layer, rng, JSC_BATCH, device)
-        got = lut_dense_bwd_fused(x, *args, g)
-        again = lut_dense_bwd_fused(x, *args, g)
-        torch.cuda.synchronize()
-        want = lut_dense_bwd_ref(x, *args, g)
-        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                   for a, b in zip(got, again))
-        check(same, f"B3 {ci}->{co}: two launches on the same inputs differ")
-        rel = b3_max_rel_err(got, want)
-        worst = max(rel, key=rel.get)
-        check(all(torch.isfinite(t).all() for t in got) and rel[worst] <= B3_REL,
-              f"B3 {ci}->{co}: {worst} off by {rel[worst]:.3g} of its largest "
-              f"magnitude (> {B3_REL})")
+        rel = b3_check(f"{ci}->{co}", lut_dense_bwd_fused, x, args, g)
+        worst = max(B3_NAMES, key=rel.get)
+        kern = device_kernels(lambda: lut_dense_bwd_fused(x, *args, g))
+        check(len(kern) == 1, f"B3 {ci}->{co}: {len(kern)} device kernels a call: {kern}")
         # the forward it recomputes: B2 on the same inputs against its plain version
         n_flip, _ = flips(lut_dense_fused(x, *args), lut_dense_ref(x, *args),
                           torch.exp2(-args[6].max(dim=0).values))
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        ms = cuda_ms(lambda: lut_dense_bwd_fused(x, *args, g))
+        ms = cuda_ms(lambda: lut_dense_bwd_fused(x, *args, g), iters=50)
         plain_ms = cuda_ms(lambda: lut_dense_bwd_ref(x, *args, g), iters=5, warmup=1)
         n_bytes = 4 * (2 * x.numel() + g.numel() + 2 * sum(a.numel() for a in args[:4])
                        + 2 * sum(a.numel() for a in args[4:]))
@@ -542,15 +736,26 @@ def phase_b3(device, report):
         b_ms, b_by = bound(n_bytes, n_ops)
         print(f"[B3] {ci}->{co} H={HIDDEN} B={JSC_BATCH}, pruned cells: all eight "
               f"gradients within {B3_REL} of the plain version (worst {worst} "
-              f"{rel[worst]:.3g}; max|err| {err:.3g}); dx off by {rel['dx']:.3g}; "
-              f"recomputed forward flips vs plain {n_flip}; two launches "
-              f"bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by})")
-        rows.append((err, ms, plain_ms, b_ms, b_by))
+              f"{rel[worst]:.3g}; max|err| {rel['max_abs']:.3g}); dx off by "
+              f"{rel['dx']:.3g}; recomputed forward flips vs plain {n_flip}; two "
+              f"launches bitwise equal; {len(kern)} device kernel a call ({kern[0]}); "
+              f"kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        rows.append((rel["max_abs"], ms, plain_ms, b_ms, b_by))
+    edge = b3_edge_args(np.random.default_rng(SEED + 7), 4099, device)
+    worst_edge = 0.0
+    for label, x, args, g in edge:
+        rel = b3_check(f"edge {label}", lut_dense_bwd_fused, x, args, g)
+        worst_edge = max(worst_edge, max(rel[n] for n in B3_NAMES))
+    print(f"[B3] edge widths, one cell each at B=4099 ({len(edge)} cases: f_in/i_in "
+          f"in {[w[:2] for w in B3_EDGE_IN]}, f_out/i_out in {list(B3_EDGE_OUT)}): all "
+          f"eight gradients within {B3_REL} of the plain version (worst "
+          f"{worst_edge:.3g}), finite, two launches bitwise equal")
     err, ms, plain_ms, b_ms, b_by = rows[1]           # the path's layer, 20->5
     report["lut_dense_bwd"] = {"max_abs_err": max(r[0] for r in rows), "ms": ms,
                                "plain_ms": plain_ms, "bound_ms": b_ms,
-                               "bound_by": b_by, "library_ms": None}
+                               "bound_by": b_by, "library_ms": None,
+                               "ms_16_20": rows[0][1], "bound_ms_16_20": rows[0][3],
+                               "kernels_per_call": 1}
 
 
 def phase_slice_float(device):
@@ -753,7 +958,8 @@ def compare_step_to_plain(layers, hp, batch):
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
     n_flips = cell_flips(layers, cpu_layers, batch["x"])
     step0 = torch.zeros((), dtype=torch.int32)
-    loss, ce, aux, grads = lut_loss_and_grads(layers, hp, step0, batch)
+    loss, ce, aux, grads = lut_loss_and_grads(layers, hp, step0.to(batch["x"].device),
+                                              batch)
     closs, cce, caux, cgrads = lut_loss_and_grads(cpu_layers, hp, step0, cpu_batch)
     b = batch["x"].shape[0]
     for name, a, c in (("loss", loss, closs), ("ce", ce, cce),
@@ -781,6 +987,23 @@ def compare_step_to_plain(layers, hp, batch):
     return cpu_layers, n_flips, worst
 
 
+def schedule_ulps(hp, device, steps):
+    """Largest difference, in float32 ulps, between beta and the learning
+    rate of steps 0..steps-1 computed from a step counter on the card and
+    the same on the CPU: ``(beta, lr)``."""
+    import torch
+
+    got = []
+    for dev in (device, torch.device("cpu")):
+        k = torch.zeros((), dtype=torch.int32, device=dev)
+        vals = []
+        for _ in range(steps):
+            vals.append(torch.stack([hp.beta(k), hp.lr_schedule(k + 1)]))
+            k = k + 1
+        got.append(torch.stack(vals).cpu().numpy().view(np.int32).astype(np.int64))
+    return tuple(int(u) for u in np.abs(got[0] - got[1]).max(axis=0))
+
+
 def phase_train(device):
     """Part 1 of the train slice: step 1 against the plain versions (its
     launches are comparisons and are made before the path's window)."""
@@ -791,6 +1014,9 @@ def phase_train(device):
           f"on the card agree with the plain versions (CPU) within tolerance "
           f"(worst {worst:.3f} of it; {n_flips} cell codes flip between the "
           f"two; {time.monotonic() - t0:.1f}s)")
+    u_beta, u_lr = schedule_ulps(hp, device, TRAIN_STEPS)
+    print(f"[train] beta and lr of steps 1-{TRAIN_STEPS} from the step counter on "
+          f"the card vs on the CPU: at most {u_beta} and {u_lr} float32 ulps apart")
     return layers, hp, data, cpu_layers
 
 
@@ -806,6 +1032,8 @@ def phase_train_run(device, layers, hp, data, cpu_layers):
 
     step_fn, init_fn = make_lut_train_step(layers, hp)
     opt = init_fn()
+    check(opt["step"].device == layers[0].w0.device,
+          f"train: the step counter is on {opt['step'].device}, not the card")
     per_step = {"fake_quant": 2, "lut_dense": 1, "lut_dense_bwd": 1, "lut_serve": 0}
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(TRAIN_STEPS)]
@@ -1029,6 +1257,22 @@ def main_b1_timing() -> int:
     return 0
 
 
+def main_b3_timing() -> int:
+    """``--b3-timing``: only B3's timings at the JSC-HLF shapes, with its
+    registers and SASS (the same harness for two trees, run from each
+    tree's root); prints no result line."""
+    import torch
+    from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
+
+    phase_device()
+    tag = f" {os.path.basename(REPO)}"
+    print(f"[B3{tag}] ptxas, H={HIDDEN}: {ptxas_usage('lut_dense_bwd', B3_KERNEL)}")
+    sass, per_row = sass_hot_loop("lut_dense_bwd", B3_KERNEL, HIDDEN)
+    print(f"[B3{tag}] SASS, H={HIDDEN}: {sass}")
+    b3_timings(lut_dense_bwd_fused, torch.device("cuda:0"), tag=tag, per_row=per_row)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1037,6 +1281,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--b1-timing"]:
         return main_b1_timing()
+    if sys.argv[1:] == ["--b3-timing"]:
+        return main_b3_timing()
     # reference precision: no float32 matmul or convolution rounds via TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -86,8 +86,8 @@ class BetaSchedule:
     """Exponential β ramp over training steps (constant if beta_final is None).
 
     ``beta_final <= 0`` raises; ``beta_init <= 0`` is floored to
-    :data:`BETA_RAMP_EPS` with a warning.  Values are float32, computed on
-    the CPU like the reference's.
+    :data:`BETA_RAMP_EPS` with a warning.  Values are float32, computed like
+    the reference's, on the device of the step they are given.
     """
 
     beta_init: float = 5e-7
@@ -111,9 +111,9 @@ class BetaSchedule:
 
     def __call__(self, step) -> torch.Tensor:
         step = torch.as_tensor(step)
-        b0 = torch.tensor(self.beta_init, dtype=torch.float32)
+        b0 = torch.full((), self.beta_init, dtype=torch.float32, device=step.device)
         if self.beta_final is None:
             return torch.broadcast_to(b0, step.shape)
-        b1 = torch.tensor(self.beta_final, dtype=torch.float32)
+        b1 = torch.full((), self.beta_final, dtype=torch.float32, device=step.device)
         t = torch.clamp(step.to(torch.float32) / max(self.total_steps - 1, 1), 0.0, 1.0)
         return torch.exp((1.0 - t) * torch.log(b0) + t * torch.log(b1))

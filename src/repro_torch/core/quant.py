@@ -70,13 +70,14 @@ def pow2(e: torch.Tensor) -> torch.Tensor:
     2**-149, inf above 2**127), ``torch.exp2`` elsewhere.
 
     ``torch.exp2`` is exact at every integer on the CPU, but on the H100 it
-    misses 2**-127 (ROADMAP C7), so the plain quantizer builds the bits."""
-    k = torch.clamp(torch.nan_to_num(e), -150.0, 128.0).to(torch.int32)
-    normal = (torch.clamp(k, min=-126) + 127) << 23
-    subnormal = torch.ones_like(k) << torch.clamp(k + 149, min=0)
-    bits = torch.where(k >= -126, normal,
-                       torch.where(k >= -149, subnormal, torch.zeros_like(k)))
-    return torch.where(e == torch.round(e), bits.view(torch.float32), torch.exp2(e))
+    misses 2**-127 (ROADMAP C7), so the plain quantizer builds the bits:
+    2**e = 2**h * 2**(e - h) with h = floor(e / 2), both halves normal
+    floats made from their exponent bits, and the product rounds once."""
+    k = torch.clamp(e, -252.0, 254.0)
+    h = torch.floor(k * 0.5)
+    halves = torch.stack((h, k - h))                  # each in [-126, 127]
+    bits = (halves * 8388608.0 + 1065353216.0).to(torch.int32).view(torch.float32)
+    return torch.where(e == torch.round(e), bits[0] * bits[1], torch.exp2(e))
 
 
 def _fq_eval(x: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
@@ -157,30 +158,27 @@ def _fq_forward(x, f, i, signed, overflow):
 
 
 def _fq_bwd(x, f, i, signed: bool, overflow: str, g):
-    """Surrogate VJP of the fake-quantizer (``repro.core.quant._fq_bwd``)."""
-    scale = torch.exp2(-f)
-    hi = torch.exp2(i) - scale
-    lo = -torch.exp2(i) if signed else torch.zeros_like(hi)
+    """Surrogate VJP of the fake-quantizer (``repro.core.quant._fq_bwd``),
+    on the exact powers of two of the forward (:func:`pow2`)."""
+    scale, top = pow2(torch.stack(torch.broadcast_tensors(-f, i)))
     rounded = torch.round(x / scale) * scale
-    clipped_hi = rounded > hi
-    clipped_lo = rounded < lo
-    width = i + f + (1.0 if signed else 0.0)
-    alive = width > 0.0
-    zero = torch.zeros_like(g)
+    alive = i + f + (1.0 if signed else 0.0) > 0.0
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
     if overflow == "SAT":
         # STE inside the representable range, zero outside
+        clipped_hi = rounded > top - scale
+        clipped_lo = rounded < (-top if signed else 0.0)
         dx = torch.where(alive & ~(clipped_hi | clipped_lo), g, zero)
         df = torch.where(clipped_hi, LOG2 * scale, LOG2 * (x - rounded))
-        df = torch.where(clipped_lo, torch.zeros_like(df), df)
-        p2i = torch.exp2(i)
-        di = torch.where(clipped_hi, LOG2 * p2i, torch.zeros_like(rounded))
-        di = torch.where(clipped_lo, -LOG2 * p2i, di)
+        df = torch.where(clipped_lo, zero, df)
+        di = torch.where(clipped_lo, -LOG2 * top,
+                         torch.where(clipped_hi, LOG2 * top, zero))
     else:  # WRAP: a wrap is invisible to the loss surface, so no di
         dx = torch.where(alive, g, zero)
         df = LOG2 * (x - rounded)
-        di = torch.zeros_like(df)
-    df = torch.where(alive, df * g, torch.zeros_like(df))
-    di = torch.where(alive, di * g, torch.zeros_like(di))
+        di = zero
+    df = torch.where(alive, df * g, zero)
+    di = torch.where(alive, di * g, zero)
     return dx, _reduce_to_shape(df, f.shape), _reduce_to_shape(di, i.shape)
 
 

@@ -19,7 +19,7 @@
 //  * The column path.  Let Pc = lcm(P, E, 4) and Q = Pc / 4.  A thread owns
 //    one float4 column c < Q of every Pc-element row of the output and walks
 //    down the rows, so its four width pairs and source offsets are fixed:
-//    they are turned into constants (Width below) once per thread and held
+//    they are turned into constants (fq::Width, fq.cuh) once per thread and held
 //    in registers (one pair only, for per-tensor widths).  No index is divided per element; neighbouring threads
 //    store neighbouring float4s.  Bytes in flight: a contiguous x is read
 //    two float4 rows ahead (double-buffered); where a float4 of the output
@@ -36,21 +36,9 @@
 //    times the kernel's resident blocks per SM (occupancy query, cached).
 //
 // The arithmetic.  The output is bit for bit fq::quantize's, which is the
-// plain version's; fq::quantize stays the fallback.  Two shortcuts, each
-// taken only where it provably gives the same bits:
-//  * x * 2^f in place of x / 2^-f: both powers are normal floats for
-//    |f| <= 126, the exact quotient and the exact product are one real
-//    number, and both operations round it once, to nearest even.
-//  * WRAP on the integer code c = rint(x * 2^f):
-//      lo_c + ((c - lo_c) & (2^w - 1)),  w = f + i + signed,
-//    then one multiply by 2^-f.  fq::quantize's floor-mod reaches the same
-//    value when each of its float steps is exact, which holds when
-//      1 <= w <= 24, -103 <= f <= 126, |i| <= 126 and |c| <= 2^24 - |lo_c|:
-//    every quantity it forms (q, hi, span, q - lo, the remainder, lo + r)
-//    is then an integer multiple m of 2^-f with |m| <= 2^24 and magnitude
-//    below 2^128, hence a float.  A zero result is +0 on both sides.
-//    Anything else (NaN, inf, large |x|, wide or non-integer widths) takes
-//    fq::quantize unchanged.
+// plain version's: fq::quant_fast with fq::quantize out of line as the
+// fallback (fq.cuh proves the two shortcuts it takes: x * 2^f for x / 2^-f,
+// and WRAP on the integer code).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,71 +49,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsFloat4 = 2;     // float4 rows in flight a thread, double-buffered
 constexpr int kRowsOneSource = 32; // rows in flight when a float4 expands one float
-
-// 2^e for an integer e in [-126, 127]: a normal float, built exactly.
-__device__ __forceinline__ float pow2(int e) {
-  return __int_as_float((e + 127) << 23);
-}
-
-// One width pair turned into the constants of its fast path.
-struct Width {
-  float mul, scale;    // 2^f and 2^-f
-  float lo, hi;        // SAT bounds, as fq::quantize forms them
-  float climit;        // WRAP: the code guard 2^24 - |lo_c|
-  int lo_c;            // WRAP: the lowest code
-  unsigned mask;       // WRAP: 2^w - 1
-  bool live, fast;
-};
-
-template <bool SIGNED, bool WRAP>
-__device__ __forceinline__ Width make_width(float f, float i) {
-  Width w;
-  const float width = __fadd_rn(__fadd_rn(i, f), SIGNED ? 1.0f : 0.0f);
-  w.live = width > 0.0f;
-  const bool integral = fabsf(f) <= 126.0f && fabsf(i) <= 126.0f &&
-                        f == truncf(f) && i == truncf(i);
-  const int fi = integral ? static_cast<int>(f) : 0;
-  const int ii = integral ? static_cast<int>(i) : 0;
-  w.mul = pow2(fi);
-  w.scale = pow2(-fi);
-  const float top = pow2(ii);
-  w.hi = __fsub_rn(top, w.scale);
-  w.lo = SIGNED ? -top : 0.0f;
-  const int bits = fi + ii + (SIGNED ? 1 : 0);
-  w.fast = WRAP ? (integral && w.live && bits <= 24 && fi >= -103) : integral;
-  const int b = (WRAP && w.fast) ? bits : 1;
-  w.lo_c = SIGNED ? -(1 << (b - 1)) : 0;
-  w.mask = (1u << b) - 1u;
-  w.climit = static_cast<float>(16777216 + w.lo_c);
-  return w;
-}
-
-// fq::quantize out of line: the hot loop stays a few dozen instructions
-// instead of carrying an inlined copy of the rare path for every lane.
-template <bool SIGNED, bool WRAP>
-__device__ __noinline__ float quantize_slow(float x, float f, float i) {
-  return fq::quantize(x, f, i, SIGNED, WRAP);
-}
-
-// The fast path: false where the element needs quantize_slow instead.
-template <bool SIGNED, bool WRAP>
-__device__ __forceinline__ bool quant_fast(float x, const Width& w, float& q) {
-  if (!w.live) {
-    q = 0.0f;
-    return true;
-  }
-  if (!w.fast) return false;
-  const float c = rintf(__fmul_rn(x, w.mul));
-  if (!WRAP) {
-    const float v = __fmul_rn(c, w.scale);
-    q = isnan(v) ? v : fminf(fmaxf(v, w.lo), w.hi);
-    return true;
-  }
-  if (!(fabsf(c) <= w.climit)) return false;
-  const unsigned r = static_cast<unsigned>(__float2int_rn(c) - w.lo_c) & w.mask;
-  q = __fmul_rn(static_cast<float>(w.lo_c + static_cast<int>(r)), w.scale);
-  return true;
-}
 
 // Output elements [k0, n) one at a time, grid-stride, from thread t of T.
 template <bool SIGNED, bool WRAP, typename I>
@@ -139,8 +62,8 @@ __device__ __forceinline__ void elementwise(const float* __restrict__ x,
     const float v = __ldg(x + (expand == 1 ? k : k / expand));
     const float fv = __ldg(f + p), iv = __ldg(i + p);
     float q;
-    if (!quant_fast<SIGNED, WRAP>(v, make_width<SIGNED, WRAP>(fv, iv), q))
-      q = quantize_slow<SIGNED, WRAP>(v, fv, iv);
+    if (!fq::quant_fast<SIGNED, WRAP>(v, fq::make_width<SIGNED, WRAP>(fv, iv), q))
+      q = fq::quantize_slow<SIGNED, WRAP>(v, fv, iv);
     out[k] = q;
   }
 }
@@ -162,7 +85,7 @@ fq_column_kernel(const float* __restrict__ x, const float* __restrict__ f,
     const I col = t % cols;
     const I step = active / cols;                // rows between visits
     const I src_row = 4 * cols / expand;         // source elements a row
-    Width w[NW];
+    fq::Width w[NW];
     float fw[NW], iw[NW];
     I off[4];
 #pragma unroll
@@ -176,14 +99,14 @@ fq_column_kernel(const float* __restrict__ x, const float* __restrict__ f,
     }
     auto make_widths = [&] {
 #pragma unroll
-      for (int l = 0; l < NW; ++l) w[l] = make_width<SIGNED, WRAP>(fw[l], iw[l]);
+      for (int l = 0; l < NW; ++l) w[l] = fq::make_width<SIGNED, WRAP>(fw[l], iw[l]);
     };
     // lane l of a float4: the fast path, or fq::quantize on the pair reloaded
     auto lane = [&](int l, float v) {
       float q;
-      if (!quant_fast<SIGNED, WRAP>(v, w[UNIFORM ? 0 : l], q)) {
+      if (!fq::quant_fast<SIGNED, WRAP>(v, w[UNIFORM ? 0 : l], q)) {
         const I p = UNIFORM ? 0 : (4 * col + l) % period;
-        q = quantize_slow<SIGNED, WRAP>(v, __ldg(f + p), __ldg(i + p));
+        q = fq::quantize_slow<SIGNED, WRAP>(v, __ldg(f + p), __ldg(i + p));
       }
       return q;
     };

@@ -92,8 +92,9 @@ def opt_state_from_numpy(layers, d: Dict) -> Dict:
     from repro_torch.train.steps import named_params
 
     params = named_params(layers)
+    device = next(iter(params.values())).device
     out = {"m": {}, "v": {}, "step": torch.tensor(int(np.asarray(d["step"])),
-                                                  dtype=torch.int32)}
+                                                  dtype=torch.int32, device=device)}
     for k, layer in enumerate(layers):
         for key, sub, _t in _entries(layer):
             path = _path(k, key, sub)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import LOG2, _fq_eval, fq_surrogate
+from repro_torch.core.quant import LOG2, _fq_eval, fq_surrogate, pow2
 
 
 def fake_quant_ref(x: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
@@ -88,16 +88,17 @@ def lut_dense_bwd_ref(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, g):
     b, c_in = x.shape
     c_out = w0.shape[-1]
     xb = x.float()[:, :, None].expand(b, c_in, c_out)
-    # forward recompute, the expressions of lut_dense_ref
-    scale_i = torch.exp2(-f_in)
+    # forward recompute, the expressions of lut_dense_ref, on the exact
+    # powers of two of its quantizers (pow2, as kernel B3)
+    scale_i = pow2(-f_in)
     r_in = torch.round(xb / scale_i) * scale_i
     alive_i = f_in + i_in + 1.0 > 0.0
     xq = fake_quant_ref(xb, f_in[None], i_in[None], True, "WRAP")
     h = torch.tanh(xq[:, :, None, :] * w0[None] + b0[None])       # (B, Ci, H, Co)
     y = _sum_hidden(h * w_out[None]) + b_out[None]                 # (B, Ci, Co)
-    scale_o = torch.exp2(-f_out)
+    scale_o = pow2(-f_out)
     r_out = torch.round(y / scale_o) * scale_o
-    p2 = torch.exp2(i_out)
+    p2 = pow2(i_out)
     chi = r_out > p2 - scale_o
     clo = r_out < -p2
     alive_o = f_out + i_out + 1.0 > 0.0

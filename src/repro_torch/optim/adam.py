@@ -4,9 +4,11 @@ Written by hand rather than with ``torch.optim.Adam``, whose bias correction
 rounds differently from the reference's.  Parameters, gradients and the
 moments are flat dicts keyed by the reference's ``/``-joined paths
 (``l0/w0``, ``l1/q_out/f``), so the weight-decay mask matches the same
-substrings as in the reference.  Step-dependent scalars (bias corrections,
-learning rate) are float32 tensors on the CPU, as the reference computes
-them in float32; they enter the device arithmetic as scalars.
+substrings as in the reference.  The step counter lives on the parameters'
+device, as the reference's does, and the step-dependent scalars (bias
+corrections, learning rate) are float32 tensors computed from it there, as
+the reference computes them in float32: a step makes no CPU op and waits
+for nothing, and a captured CUDA graph replays them with the counter.
 """
 
 from __future__ import annotations
@@ -36,14 +38,19 @@ def _decay_mask(path: str) -> float:
     return 0.0 if any(k in path for k in NO_DECAY_KEYS) else 1.0
 
 
-def _f32(v) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32)
+def _f32(v, device=None) -> torch.Tensor:
+    """A float32 scalar tensor on ``device``; a Python number is filled in
+    there (a kernel, which a CUDA graph can capture, not a host copy)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), v, dtype=torch.float32, device=device)
 
 
 def adam_init(params: Dict[str, torch.Tensor]) -> dict:
+    device = next(iter(params.values())).device if params else None
     return {"m": {k: torch.zeros_like(p) for k, p in params.items()},
             "v": {k: torch.zeros_like(p) for k, p in params.items()},
-            "step": torch.zeros((), dtype=torch.int32)}
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -68,11 +75,12 @@ def adam_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
         grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
     else:
         gn = global_norm(grads)
-    lr = _f32(cfg.lr) if lr_schedule is None else _f32(lr_schedule(step))
+    dev = step.device
+    lr = _f32(cfg.lr, dev) if lr_schedule is None else _f32(lr_schedule(step), dev)
     b1, b2 = cfg.b1, cfg.b2
     sf = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(_f32(b1), sf)
-    bc2 = 1.0 - torch.pow(_f32(b2), sf)
+    bc1 = 1.0 - torch.pow(_f32(b1, dev), sf)
+    bc2 = 1.0 - torch.pow(_f32(b2, dev), sf)
     new_p, new_m, new_v = {}, {}, {}
     for path, p in params.items():
         gf = grads[path].float()
@@ -91,18 +99,20 @@ def cosine_restarts(base_lr: float, first_period: int = 1000,
                     t_mult: int = 2, min_frac: float = 0.02,
                     warmup: int = 100) -> Callable:
     """SGDR: cosine annealing with (geometric) warm restarts + linear warmup;
-    float32 arithmetic on a step tensor, as the reference."""
+    float32 arithmetic on a step tensor, as the reference, on the step's
+    device."""
 
     def sched(step):
         sf = torch.as_tensor(step).to(torch.float32)
+        tm = _f32(t_mult, sf.device)
         s = torch.clamp(sf - warmup, min=0.0)
         if t_mult == 1:
             frac = torch.remainder(s, first_period) / first_period
         else:
             cyc = torch.floor(torch.log2(1.0 + s * (t_mult - 1) / first_period)
-                              / torch.log2(_f32(t_mult)))
-            start = first_period * (torch.pow(_f32(t_mult), cyc) - 1) / (t_mult - 1)
-            length = first_period * torch.pow(_f32(t_mult), cyc)
+                              / torch.log2(tm))
+            start = first_period * (torch.pow(tm, cyc) - 1) / (t_mult - 1)
+            length = first_period * torch.pow(tm, cyc)
             frac = (s - start) / length
         cos = 0.5 * (1 + torch.cos(math.pi * torch.clamp(frac, 0.0, 1.0)))
         lr = base_lr * (min_frac + (1 - min_frac) * cos)

@@ -143,7 +143,11 @@ def test_b1_rejects_a_width_shape_it_would_have_to_broadcast(device):
 
 @pytest.mark.parametrize("ci,co,bn", [(16, 20, True), (20, 5, False)])
 def test_b3_matches_plain_and_is_deterministic(device, ci, co, bn):
-    from chip_smoke import B3_REL, b3_args, b3_max_rel_err
+    """B3 at the JSC layer shapes with a ragged batch, then one cell at a
+    time at the edge widths f = +-127, i = -127 (chip_smoke.B3_EDGE_IN/OUT),
+    where the plain backward needs exact powers of two (ROADMAP C8): two
+    launches bitwise equal, every gradient within B3_REL of the plain one."""
+    from chip_smoke import B3_REL, b3_args, b3_edge_args, b3_max_rel_err
     from repro_torch.core.lut_layers import LUTDense
     from repro_torch.kernels import ops
     from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
@@ -152,15 +156,104 @@ def test_b3_matches_plain_and_is_deterministic(device, ci, co, bn):
     layer = LUTDense(ci, co, hidden=8, use_batchnorm=bn, device=device,
                      generator=torch.Generator().manual_seed(3))
     x, args, g = b3_args(layer, np.random.default_rng(3), 4099, device)   # ragged
-    before = ops.launch_counts()["lut_dense_bwd"]
-    got = lut_dense_bwd_fused(x, *args, g)
-    again = lut_dense_bwd_fused(x, *args, g)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["lut_dense_bwd"] == before + 2
-    for a, b in zip(got, again):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    rel = b3_max_rel_err(got, lut_dense_bwd_ref(x, *args, g))
+    cases = [("layer", x, args, g)] + b3_edge_args(np.random.default_rng(ci), 4099, device)
+    for label, x, args, g in cases:
+        before = ops.launch_counts()["lut_dense_bwd"]
+        got = lut_dense_bwd_fused(x, *args, g)
+        again = lut_dense_bwd_fused(x, *args, g)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["lut_dense_bwd"] == before + 2, label
+        for a, b in zip(got, again):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), label
+        assert all(bool(torch.isfinite(t).all()) for t in got), label
+        rel = b3_max_rel_err(got, lut_dense_bwd_ref(x, *args, g))
+        assert max(rel.values()) <= B3_REL, (label, rel)
+
+
+@pytest.mark.parametrize("b,ci,co,h", [(3001, 3, 40, 8), (3001, 5, 20, 16), (999, 7, 3, 1),
+                                        (2500, 2, 70, 4), (1, 4, 5, 8), (40000, 20, 2, 3)])
+def test_b3_other_shapes(device, b, ci, co, h):
+    """Hidden widths other than the path's, C_out past one chunk of the
+    kernel's shared memory (several chunks of o), one row, and a batch whose
+    splits are capped in rows: within B3_REL of the plain version."""
+    from chip_smoke import B3_REL, b3_max_rel_err
+    from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
+    from repro_torch.kernels.ref import lut_dense_bwd_ref
+
+    rng = np.random.default_rng(b + ci + co + h)
+    shapes = [(b, ci), (ci, h, co), (ci, h, co), (ci, h, co), (ci, co)]
+    scales = [3.0, 1.0, 0.5, (h * ci) ** -0.5 * 3, 0.2]
+    args = [torch.as_tensor(rng.normal(0, s, sh), dtype=torch.float32, device=device)
+            for s, sh in zip(scales, shapes)]
+    for lo, hi in ((-1, 6), (-1, 4), (0, 6), (-1, 2)):
+        args.append(torch.as_tensor(rng.integers(lo, hi, (ci, co)), dtype=torch.float32,
+                                    device=device))
+    g = torch.as_tensor(rng.normal(0, 1, (b, co)), dtype=torch.float32, device=device)
+    got = lut_dense_bwd_fused(*args, g)
+    again = lut_dense_bwd_fused(*args, g)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
+    rel = b3_max_rel_err(got, lut_dense_bwd_ref(*args, g))
     assert max(rel.values()) <= B3_REL, rel
+
+
+def test_b3_graph_replay_equals_eager(device):
+    """One B3 call captured in a CUDA graph and replayed gives the eager
+    call's bits: the kernel resets its own counters."""
+    from chip_smoke import b3_args
+    from repro_torch.core.lut_layers import LUTDense
+    from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
+
+    layer = LUTDense(20, 5, hidden=8, device=device,
+                     generator=torch.Generator().manual_seed(4))
+    x, args, g = b3_args(layer, np.random.default_rng(4), 16600, device)
+    eager = [t.clone() for t in lut_dense_bwd_fused(x, *args, g)]   # before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lut_dense_bwd_fused(x, *args, g)
+    for _ in range(3):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, eager):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_b3_is_one_device_kernel(device):
+    from chip_smoke import b3_args, device_kernels
+    from repro_torch.core.lut_layers import LUTDense
+    from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
+
+    layer = LUTDense(16, 20, hidden=8, device=device,
+                     generator=torch.Generator().manual_seed(5))
+    x, args, g = b3_args(layer, np.random.default_rng(5), 999, device)
+    lut_dense_bwd_fused(x, *args, g)
+    assert len(device_kernels(lambda: lut_dense_bwd_fused(x, *args, g))) == 1
+
+
+@pytest.mark.parametrize("step", [0, 1, 29, 30, 99, 100, 150, 199, 1000])
+def test_beta_and_lr_on_card_match_cpu(device, step):
+    """The step counter lives on the card (ROADMAP C9), and beta and the
+    learning rate computed there from it agree with the CPU's: the card's
+    expf / logf / cosf differ from the CPU's in their last ulps.  beta is
+    exp(u) with |u| near 14.5, so an ulp of u is 1e-6 of beta (chip_smoke
+    measured up to 16 ulps of beta over 200 steps): beta holds to 4e-6 of
+    itself.  lr holds to 1e-6 of itself plus 1e-6 of its peak, as the CPU
+    parity against the reference in tests/test_torch_train.py (0.5 * (1 +
+    cos) near the end of a cycle cancels)."""
+    from repro_torch.core.ebops import BetaSchedule
+    from repro_torch.optim.adam import adam_init, cosine_restarts
+
+    assert adam_init({"w": torch.zeros(3, device=device)})["step"].device == device
+    beta = BetaSchedule(5e-7, 1e-4, 200)
+    sched = cosine_restarts(3e-3, first_period=100, warmup=30)
+    for fn, rtol, atol in ((beta, 4e-6, 0.0), (sched, 1e-6, 1e-6 * 3e-3)):
+        cpu = fn(torch.tensor(step, dtype=torch.int32))
+        card = fn(torch.tensor(step, dtype=torch.int32, device=device))
+        assert card.device == device and card.dtype == torch.float32
+        np.testing.assert_allclose(float(card.cpu()), float(cpu), rtol=rtol, atol=atol)
 
 
 def test_fused_train_step_on_card_matches_plain(device, monkeypatch):
