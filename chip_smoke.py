@@ -19,9 +19,14 @@ line:
    the integer-wrap guard, |f| at 126 and 127); then timed with a cold L2
    beside its bounds, its plain version and
    ``torch.fake_quantize_per_tensor_affine``;
-3. kernel B2 (LUT-Dense forward) against its plain version at the JSC-HLF
-   layer shapes 16->20 and 20->5, H=8, B=16600: code flips counted and
-   bounded, both timed with CUDA events;
+3. kernel B2 (LUT-Dense forward) against its plain version, bit for bit
+   (any NaN matching any NaN) and in two launches: at the JSC-HLF layer
+   shapes 16->20 and 20->5, H=8, B=16600, with a CUDA-graph replay and one
+   device kernel a call, both timed with CUDA events beside the bound and
+   the issue floor of its SASS; then one cell at a time at the edge widths
+   f = +-127, i = -127 and dead cells, x with NaN, +-inf and codes past the
+   WRAP guard, H in 1, 3, 8, 16, 17 and B in 1, 31, 4099 by C_out in 1, 33;
+   no register spills at H = 8 (ptxas);
 4. kernel B3 (recompute backward) against its plain version at the same
    shapes with pruned cells, and one cell at a time at the edge widths f =
    +-127, i = -127, within ``B3_REL``; two launches bitwise equal; one
@@ -47,9 +52,9 @@ line:
    kernel B4 against its plain version bit for bit;
 9. the ``kernels`` JSON line, then the result line.
 
-``python3 chip_smoke.py --b1-timing`` and ``--b3-timing`` print only kernel
-B1's or B3's timings (and B3's registers and SASS), and no result line, to
-compare two trees in one call.
+``python3 chip_smoke.py --b1-timing``, ``--b2-timing`` and ``--b3-timing``
+print only kernel B1's, B2's or B3's timings (and B2's or B3's registers
+and SASS), and no result line, to compare two trees in one call.
 
 The launch counters are zeroed just before each path (phases 5-6 and phase
 7, after its step-1 comparison) and read just after it: each path must have
@@ -105,6 +110,8 @@ GRAD_ATOL = 1e-7
 SHADOWED_RTOL = 1e-3
 # ~0.1 s of device clock: longer than the host takes to enqueue any timed loop
 HOST_AHEAD_CYCLES = 200_000_000
+# ~2 ms of device clock: longer than the host takes to enqueue 10 calls
+HOST_BUSY_CYCLES = 4_000_000
 # train steps inside the torch.profiler window
 PROFILE_STEPS = (100, 105)
 # more than the H100's 50 MB L2: B1's cold-cache timing flushes this much
@@ -445,45 +452,257 @@ def phase_b1(device, report):
         "expand_bound_ms": t["bound_expand"], "copy_then_ms": t["copy_then_wrap"]}
 
 
-def phase_b2(device, report):
+# B2's instantiation at the path's H, by substrings of its mangled name
+B2_KERNEL = ("lut_dense_forward_kernel", f"ILi{HIDDEN}E")
+
+
+def b2_kernel():
+    """``B2_KERNEL``, or its name alone in a build where B2 is no template."""
+    from repro_torch.kernels import build as kbuild
+
+    log = kbuild.build_log("lut_dense")
+    return B2_KERNEL if all(k in log for k in B2_KERNEL) else B2_KERNEL[:1]
+
+
+def same_bits(a, b) -> bool:
+    """Identical float32 bit patterns, any NaN matching any NaN."""
     import torch
-    from repro_torch.core.lut_layers import LUTDense
-    from repro_torch.kernels.lut_dense import lut_dense_fused
+
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    return torch.equal(a.masked_fill(nan, 0).view(torch.int32),
+                       b.masked_fill(nan, 0).view(torch.int32))
+
+
+def b2_random_args(rng, batch, c_in, c_out, hidden, device):
+    """Seeded B2 inputs: x ~ N(0, 3) and weights as LUTDense draws them,
+    integer widths with some cells dead on either side."""
+    import torch
+
+    w = [rng.normal(0, s, (c_in, hidden, c_out)) for s in (1.0, 0.5, (hidden * c_in) ** -0.5)]
+    cells = [rng.normal(0, 0.2, (c_in, c_out))]
+    cells += [rng.integers(lo, hi, (c_in, c_out)) for lo, hi in ((-2, 8), (-2, 5), (-1, 9), (-2, 4))]
+    f32 = dict(dtype=torch.float32, device=device)
+    x = torch.as_tensor(rng.normal(0, 3, (batch, c_in)), **f32)
+    return x, [torch.as_tensor(a, **f32) for a in w + cells]
+
+
+# B2 edge cells, one at a time (C_in = C_out = 1): input widths as B3's
+# (B3_EDGE_IN), a dead one (f + i + 1 <= 0) and an ordinary one whose codes
+# vary over the rows; output widths as B3's (B3_EDGE_OUT) and a dead one,
+# with w_out and b_out scaled so that y spans the output grid's codes
+B2_MORE_IN = ((-1, -1, (-4.0, 4.0), 1.0, 1.0), (4, 3, (-6.0, 6.0), 1.0, 1.0))
+B2_EDGE_OUT = {(127, -127): 2.0 ** -127, (-127, 127): 2.0 ** 124,
+               (130, -127): 2.0 ** -128, (0, -1): 1.0}
+
+
+def b2_special_x(rng, batch, c_in, f_in):
+    """x of shape (batch, c_in): normal draws with NaN, +-inf, +-0,
+    subnormals, huge values and codes x * 2^f_in past the WRAP guard
+    (|code| >= 2^24) and at half-code ties, in every column."""
+    x = rng.normal(0, 3, (batch, c_in)).astype(np.float32)
+    scale = np.float32(2.0) ** -np.asarray(f_in, np.float32).min(axis=1)      # per column
+    special = np.float32([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-45, -1e-45, 3.4e38])
+    guard = np.float32([2 ** 24, -2 ** 24, 2 ** 24 + 2, 2 ** 30, 2 ** 23 + 0.5, 2.5, -0.5])
+    rows = rng.choice(batch, (len(special) + len(guard), c_in), replace=False)
+    for j in range(c_in):
+        r = rows[:, j]
+        x[r[:len(special)], j] = special
+        x[r[len(special):], j] = guard * scale[j]
+    return x
+
+
+def b2_cases(rng, device):
+    """Every B2 case of the card checks besides the path shapes: (label, x,
+    args).  Edge widths one cell at a time; x with NaN, +-inf and codes past
+    the WRAP guard; H in {1, 3, 8, 16, 17} (17 is the generic
+    instantiation); B in {1, 31, 4099} by C_out in {1, 33}."""
+    import torch
+
+    f32 = dict(dtype=torch.float32, device=device)
+    cases = []
+    for f_in, i_in, (lo, hi), x_scale, _g in B3_EDGE_IN + B2_MORE_IN:
+        for (f_out, i_out), y_scale in B2_EDGE_OUT.items():
+            w = [rng.normal(0, s, (1, HIDDEN, 1)) for s in (1.0, 0.5, y_scale)]
+            cells = [rng.normal(0, 0.2 * y_scale, (1, 1))] + [
+                np.full((1, 1), v) for v in (f_in, i_in, f_out, i_out)]
+            x = torch.as_tensor(rng.uniform(lo, hi, (4099, 1)) * x_scale, **f32)
+            cases.append((f"cell f_in {f_in} i_in {i_in}, f_out {f_out} i_out {i_out}", x,
+                          [torch.as_tensor(a, **f32) for a in w + cells]))
+    for c_in, c_out in ((20, 5), (16, 20)):
+        _x, args = b2_random_args(rng, 4099, c_in, c_out, HIDDEN, device)
+        x = torch.as_tensor(b2_special_x(rng, 4099, c_in, args[4].cpu().numpy()), **f32)
+        cases.append((f"special x {c_in}->{c_out}", x, args))
+    for hidden in (1, 3, 8, 16, 17):
+        cases.append((f"H={hidden}", *b2_random_args(rng, 999, 5, 7, hidden, device)))
+    for batch in (1, 31, 4099):
+        for c_out in (1, 33):
+            cases.append((f"B={batch} C_out={c_out}",
+                          *b2_random_args(rng, batch, 6, c_out, HIDDEN, device)))
+    return cases
+
+
+def b2_check(label, fn, x, args):
+    """Kernel B2 (``fn``) twice on the same inputs against its plain
+    version: both launches bit for bit equal to it (any NaN matching any
+    NaN).  Returns the output."""
+    import torch
     from repro_torch.kernels.ref import lut_dense_ref
 
+    got = fn(x, *args)
+    again = fn(x, *args)
+    torch.cuda.synchronize()
+    want = lut_dense_ref(x, *args)
+    check(got.shape == want.shape, f"B2 {label}: shape {tuple(got.shape)}")
+    check(same_bits(got, again), f"B2 {label}: two launches on the same inputs differ")
+    n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(same_bits(got, want), f"B2 {label}: {n} outputs differ from the plain version")
+    return got
+
+
+def b2_graph_replay(fn, x, args) -> bool:
+    """One B2 call captured in a CUDA graph and replayed three times gives
+    the eager call's bits."""
+    import torch
+
+    eager = fn(x, *args).clone()            # before capture: the plan is queried
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, *args)
+    ok = True
+    for _ in range(3):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = ok and same_bits(out, eager)
+    return ok
+
+
+def b2_path_inputs(device):
+    """The JSC-HLF layers (16->20 with BN, 20->5, H=8) from seed SEED + 1,
+    each with x of B = 16600 rows: [((ci, co), x, args)]."""
+    import torch
+    from repro_torch.core.lut_layers import LUTDense
+
     gen = torch.Generator().manual_seed(SEED + 1)
-    rows = []
+    out = []
     for k, (ci, co) in enumerate(zip(JSC_DIMS[:-1], JSC_DIMS[1:])):
         layer = LUTDense(ci, co, hidden=HIDDEN, use_batchnorm=(k == 0),
                          device=device, generator=gen)
-        args = layer.kernel_args()
         x = (torch.randn((JSC_BATCH, ci), generator=gen) * 4.0).to(device)
-        got = lut_dense_fused(x, *args)
-        torch.cuda.synchronize()
+        out.append(((ci, co), x, layer.kernel_args()))
+    return out
+
+
+def b2_bound(x, args, out_numel):
+    n_bytes = 4 * (x.numel() + out_numel + sum(a.numel() for a in args))
+    batch, ci = x.shape
+    # per cell: WRAP quant (~8 ops) + SAT quant (~6); per hidden unit: mul,
+    # add, tanh (counted as one), mul, add
+    n_ops = batch * ci * args[0].shape[2] * (5 * args[0].shape[1] + 14)
+    return bound(n_bytes, n_ops)
+
+
+def host_us(fn, busy: bool):
+    """Host us a call of ``fn``, enqueue only: the median and mean of 1000
+    calls timed one by one, the stream synchronized (untimed) every 10 calls
+    so that a full launch queue never holds the host.  With ``busy`` the
+    stream is first put to sleep for ``HOST_BUSY_CYCLES``, so the 10 calls
+    queue behind work on the device and their cost does not depend on how
+    fast the device runs them (a launch onto an idle device costs the host
+    more); without, the device idles between calls once it outruns the host,
+    as in the host-bound train step."""
+    import torch
+
+    host = []
+    for k in range(1010):
+        if k % 10 == 0:
+            torch.cuda.synchronize()
+            if busy:
+                torch.cuda._sleep(HOST_BUSY_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        if k >= 10:
+            host.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(host)), float(np.mean(host))
+
+
+def b2_timings(fn, device, tag="", per_row=None):
+    """B2 (``fn``) at the JSC-HLF layer shapes, B = 16600: device ms by CUDA
+    events with the host ahead, host us per call enqueue-only with the device
+    busy and idle (``host_us``), beside the bound and the issue floor of
+    ``per_row`` instructions per (b, j, o)."""
+    out = {}
+    for (ci, co), x, args in b2_path_inputs(device):
+        ms = cuda_ms(lambda: fn(x, *args), iters=50)
+        busy = host_us(lambda: fn(x, *args), busy=True)
+        idle = host_us(lambda: fn(x, *args), busy=False)
+        b_ms, b_by = b2_bound(x, args, JSC_BATCH * co)
+        floor = None if per_row is None else issue_floor_ms(JSC_BATCH * ci * co, per_row)
+        out[(ci, co)] = (ms, busy, idle, b_ms, b_by, floor)
+        print(f"[B2{tag}] {ci}->{co} H={HIDDEN} B={JSC_BATCH}: device {ms:.5f} ms a "
+              f"call (CUDA events, host ahead); host {busy[0]:.2f} us a call median, "
+              f"{busy[1]:.2f} mean (enqueue only, 1000 calls, device busy), "
+              f"{idle[0]:.2f} median, {idle[1]:.2f} mean (device idle between "
+              f"calls); bound {b_ms:.5f} ms ({b_by})"
+              + ("" if floor is None else f"; issue floor of the j loop {floor:.5f} ms"))
+    return out
+
+
+def phase_b2(device, report):
+    import torch
+    from repro_torch.kernels.lut_dense import lut_dense_fused
+    from repro_torch.kernels.ref import lut_dense_ref
+
+    kern = b2_kernel()
+    usage = ptxas_usage("lut_dense", kern)
+    print(f"[B2] ptxas, H={HIDDEN}: {usage}")
+    check(" 0 bytes spill stores" in usage and " 0 bytes spill loads" in usage,
+          f"B2 at H={HIDDEN} spills registers: {usage}")
+    sass, per_row = sass_hot_loop("lut_dense", kern, HIDDEN)
+    print(f"[B2] SASS, H={HIDDEN}: {sass}")
+    rows = {}
+    for (ci, co), x, args in b2_path_inputs(device):
+        got = b2_check(f"{ci}->{co}", lut_dense_fused, x, args)
         want = lut_dense_ref(x, *args)
+        err = float((got - want).abs().max())
         check(got.shape == (JSC_BATCH, co) and bool(torch.isfinite(got).all()),
               f"B2 {ci}->{co}: bad output")
         step = torch.exp2(-args[6].max(dim=0).values)          # finest f_out
         n_flip, max_steps = flips(got, want, step)
-        err = float((got - want).abs().max())
         check(n_flip <= B2_FLIP_FRAC * got.numel() and max_steps <= 2.0,
               f"B2 {ci}->{co}: {n_flip} outputs differ (max {max_steps} steps)")
-        ms = cuda_ms(lambda: lut_dense_fused(x, *args))
+        kernels = device_kernels(lambda: lut_dense_fused(x, *args))
+        check(len(kernels) == 1, f"B2 {ci}->{co}: {len(kernels)} device kernels a call")
+        check(b2_graph_replay(lut_dense_fused, x, args),
+              f"B2 {ci}->{co}: a CUDA-graph replay differs from the eager call")
+        ms = cuda_ms(lambda: lut_dense_fused(x, *args), iters=50)
         plain_ms = cuda_ms(lambda: lut_dense_ref(x, *args))
-        n_bytes = 4 * (x.numel() + got.numel() + sum(a.numel() for a in args))
-        # per cell: WRAP quant (~8 ops) + SAT quant (~6); per hidden unit:
-        # mul, add, tanh (counted as one), mul, add
-        n_ops = JSC_BATCH * ci * co * (5 * HIDDEN + 14)
-        b_ms, b_by = bound(n_bytes, n_ops)
-        print(f"[B2] {ci}->{co} H={HIDDEN} B={JSC_BATCH}: {n_flip} of "
-              f"{got.numel()} outputs differ from the plain version "
-              f"(max {max_steps} steps, max|err| {err}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        rows.append((ci, co, err, ms, plain_ms, b_ms, b_by))
-    ci, co, err, ms, plain_ms, b_ms, b_by = rows[0]    # the wider layer
-    report["lut_dense"] = {"max_abs_err": max(r[2] for r in rows), "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "library_ms": None}
+        b_ms, b_by = b2_bound(x, args, got.numel())
+        floor = None if per_row is None else issue_floor_ms(JSC_BATCH * ci * co, per_row)
+        print(f"[B2] {ci}->{co} H={HIDDEN} B={JSC_BATCH}: {n_flip} of {got.numel()} "
+              f"outputs differ from the plain version (bit for bit equal); two "
+              f"launches bitwise equal; graph replay equal; {len(kernels)} device "
+              f"kernel a call; kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by})"
+              + ("" if floor is None else f", issue floor of the j loop {floor:.5f} ms"))
+        rows[(ci, co)] = (ms, plain_ms, b_ms, b_by, floor, err)
+    cases = b2_cases(np.random.default_rng(SEED + 8), device)
+    for label, x, args in cases:
+        b2_check(label, lut_dense_fused, x, args)
+    print(f"[B2] {len(cases)} more cases bit for bit equal to the plain version, two "
+          f"launches each bitwise equal: {'; '.join(c[0] for c in cases)}")
+    ms, plain_ms, b_ms, b_by, floor, _ = rows[(16, 20)]     # the wider layer
+    narrow = rows[(20, 5)]                                   # the train path's layer
+    report["lut_dense"] = {"max_abs_err": max(r[5] for r in rows.values()), "ms": ms,
+                           "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                           "floor_ms": floor, "ms_20_5": narrow[0],
+                           "plain_ms_20_5": narrow[1], "bound_ms_20_5": narrow[2],
+                           "floor_ms_20_5": narrow[4], "kernels_per_call": 1}
 
 
 def b3_args(layer, rng, batch, device):
@@ -572,16 +791,27 @@ def b3_check(label, fn, x, args, g):
     return rel
 
 
+PROFILE_TRIES = 3
+
+
 def device_kernels(fn) -> list:
-    """Names of the device kernels one call of ``fn`` runs (torch.profiler)."""
+    """Names of the device kernels one call of ``fn`` runs (torch.profiler).
+    A profile on the H100 has been seen to record no device event at all,
+    one profile in several, for a call that launched its kernel (PERF.md
+    section 7), so a profile that records none is taken again, up to
+    ``PROFILE_TRIES`` of them."""
     import torch
 
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def ptxas_usage(name: str, kernel) -> str:
@@ -652,7 +882,8 @@ def sass_hot_loop(name: str, kernel, hidden: int) -> str:
     """SASS of the kernel whose mangled name contains every string of
     ``kernel`` in the built library ``name`` (``cuobjdump -sass``): its
     instruction count, and the innermost loop that evaluates whole rows of
-    tanh (``TANH_MARK``, ``hidden`` of them a (b, j, o)), with its
+    tanh (``TANH_MARK``, ``hidden`` of them a (b, j, o); of an unrolled loop
+    and its remainder, the one with fewer instructions a row), with its
     instructions per (b, j, o).  The count is static: it includes any code
     in the loop that the common path branches around.  Returns the text
     and that count (None where there is no such loop)."""
@@ -690,12 +921,16 @@ def sass_hot_loop(name: str, kernel, hidden: int) -> str:
             body = [o for _, o in ins[tgt:k + 1]]
             n_tanh = sum(TANH_MARK in o for o in body)
             if n_tanh >= hidden:
-                loops.append((k + 1 - tgt, n_tanh, sum("SHFL" in o for o in body),
+                loops.append((tgt, k + 1, n_tanh, sum("SHFL" in o for o in body),
                               sum("MUFU" in o for o in body)))
-    if not loops:
+    # innermost loops only (an unrolled loop's remainder is one too); of
+    # those, the fewest instructions a row: the loop the common shape runs
+    inner = [lp for lp in loops
+             if not any(lp[0] <= q[0] and q[1] <= lp[1] and q != lp for q in loops)]
+    if not inner:
         return f"{len(ins)} instructions; no loop evaluates a row of tanh", None
-    n, n_tanh, n_shfl, n_mufu = min(loops)
-    rows = n_tanh / hidden
+    a, b, n_tanh, n_shfl, n_mufu = min(inner, key=lambda lp: (lp[1] - lp[0]) / lp[2])
+    n, rows = b - a, n_tanh / hidden
     return (f"{len(ins)} instructions; innermost loop over rows: {n} instructions "
             f"(static), {n_tanh} tanh = {rows:g} rows of (b, j, o), {n_mufu} MUFU, "
             f"{n_shfl} shuffles: {n / rows:.1f} instructions per (b, j, o)"), n / rows
@@ -1257,6 +1492,23 @@ def main_b1_timing() -> int:
     return 0
 
 
+def main_b2_timing() -> int:
+    """``--b2-timing``: only B2's timings at the JSC-HLF shapes, with its
+    registers and SASS (the same harness for two trees, run from each
+    tree's root); prints no result line."""
+    import torch
+    from repro_torch.kernels.lut_dense import lut_dense_fused
+
+    phase_device()
+    tag = f" {os.path.basename(REPO)}"
+    kern = b2_kernel()
+    print(f"[B2{tag}] ptxas, H={HIDDEN}: {ptxas_usage('lut_dense', kern)}")
+    sass, per_row = sass_hot_loop("lut_dense", kern, HIDDEN)
+    print(f"[B2{tag}] SASS, H={HIDDEN}: {sass}")
+    b2_timings(lut_dense_fused, torch.device("cuda:0"), tag=tag, per_row=per_row)
+    return 0
+
+
 def main_b3_timing() -> int:
     """``--b3-timing``: only B3's timings at the JSC-HLF shapes, with its
     registers and SASS (the same harness for two trees, run from each
@@ -1281,6 +1533,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--b1-timing"]:
         return main_b1_timing()
+    if sys.argv[1:] == ["--b2-timing"]:
+        return main_b2_timing()
     if sys.argv[1:] == ["--b3-timing"]:
         return main_b3_timing()
     # reference precision: no float32 matmul or convolution rounds via TF32

@@ -2,80 +2,246 @@
 // layer) on Hopper.
 //
 // Replaces the TPU kernel repro/kernels/lut_dense.py::lut_dense_fused (body
-// _lut_dense_kernel, src/repro/kernels/lut_dense.py:60).
+// _lut_dense_kernel, src/repro/kernels/lut_dense.py:60; pallas_call at :114).
 //
 //   out[b, o] = sum_j SAT( sum_h w_out[j,h,o] * tanh(WRAP(x[b,j]) * w0[j,h,o]
 //                                                  + b0[j,h,o]) + b_out[j,o] )
 //
-// Design: one thread per (b, o) output.  It loops over j and h, so the
-// (B, C_in, H, C_out) hidden tensor exists only in registers.  Weights are
-// (C_in, H, C_out): neighbouring threads of a warp take neighbouring o and
-// read neighbouring weight addresses, and the few KB of weights stay in L1/L2
-// across the batch.
+// Bound: operations.  At the JSC shapes (B = 16600, 16 -> 20 and 20 -> 5,
+// H = 8) the call moves at most 2.4 MB (x, weights, out) but evaluates 42.5
+// M (16 -> 20) or 13.3 M (20 -> 5) tanhf, each about 16 instructions, two of
+// them on the SFU: some 220 instructions per (b, j, o) in all, which the
+// card issues at one warp instruction a clock on each of its 4 x 132
+// schedulers.  So what costs issue slots or leaves schedulers idle is what
+// the design removes:
+//  * One balanced wave.  Block (s, c) owns the batch rows [s*R, (s+1)*R)
+//    and the outputs [c*O, (c+1)*O) with G x O warps: warp (g, o) takes
+//    output o, and its lane l the rows 32 g + l, 32 (g + G) + l, ... of the
+//    block, so every lane of a warp reads the same cell.  R (a multiple of
+//    32 G), G and O are chosen by the caller (kernels/lut_dense.py::
+//    launch_plan) so that the grid fits the blocks the card holds at once
+//    (SMs x the occupancy of this instantiation at G x O warps,
+//    lut_dense_forward_blocks_per_sm) and the busiest SM gets the fewest
+//    rows, with the fewest blocks that does it: at 20 -> 5, 130 blocks of
+//    4 x 5 warps, one an SM, each staging its constants once for 128 rows.
+//    The ragged batch edge is a shorter last block, never padding in memory.
+//  * H is a template parameter, 1..16, so the H tanhf chains of a cell are
+//    unrolled and interleave, and four cells of a row are in flight at once
+//    (the j loop unrolled by 4); any other H runs the instantiation H = 0,
+//    the same kernel with a runtime loop over h and the weights read from
+//    global memory (every lane of a warp reads the same address).
+//  * Constants staged once per block in (dynamic) shared memory: each cell's
+//    quantizer constants (lut_cell.cuh's make_cell, B3's definition), the
+//    weights as float4 (w0, b0, w_out, 0) per (j, o, h), and the block's x
+//    tile, loaded with coalesced reads into rows of odd stride, so that the
+//    32 rows a warp reads at once fall in 32 banks.  Every lane of a warp
+//    reads the same cell and weights: a shared-memory broadcast.  Channels
+//    past the shared-memory budget are staged a chunk of j at a time, the
+//    running sum kept in the output between chunks.
+//  * fq.cuh's fast path: the input WRAP on the integer code of x * 2^f_in
+//    and the output rounding y * 2^f_out, no division and no fmodf inside
+//    its guard; anything outside the guard takes fq::quantize out of line.
 //
-// Bound: at the JSC shapes (B = 16600, 16 -> 20, H = 8) the call moves about
-// 2.4 MB (x, weights, out) but evaluates 42.5 M tanh, each a sequence of
-// FP32 instructions, so it is bound by operations, not bytes.  Nothing here
-// trades exactness for speed: the point of this kernel is to agree with the
-// plain PyTorch version (kernels/ref.py::lut_dense_ref) code for code.
-//
-// Exactness: the quantizer grid is fq.cuh's, shared with B1 and B3;
-// products and sums use __fmul_rn / __fadd_rn so nvcc cannot contract them
-// into FMAs the plain version does not do, and the sums run in the plain
-// version's order: sum over h, then + b_out, then SAT, then += over j.
+// Exactness: the kernel runs the plain version's (kernels/ref.py::
+// lut_dense_ref) float32 operations in its order, so the two agree bit for
+// bit: tanhf (no tanh.approx, no --use_fast_math); __fmul_rn / __fadd_rn so
+// nvcc cannot contract into FMAs the plain version does not do; the sum over
+// h in index order from its first product, then + b_out, then SAT, then the
+// sum over j in index order in one register, from 0.  Two launches give the
+// same bits: no atomics, and no order that depends on scheduling.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "fq.cuh"
+#include "lut_cell.cuh"
 
 namespace {
 
-__global__ void lut_dense_forward_kernel(
+constexpr int MAX_H = 16;
+constexpr int MAX_WARPS = 32;   // warps of a block, as kernels/lut_dense.py plans them
+constexpr int SMEM_MAX = 227 * 1024;           // dynamic shared memory a block may use
+constexpr int CELL_F4 = sizeof(lut::Cell) / sizeof(float4);
+static_assert(sizeof(lut::Cell) % sizeof(float4) == 0, "cells are staged as float4s");
+// kernels/lut_dense.py plans blocks with this size (CELL_BYTES) and checks
+// its plan against lut_dense_forward_smem once per shape on the card
+static_assert(sizeof(lut::Cell) == 64, "update CELL_BYTES in kernels/lut_dense.py");
+
+// One (b, j, o): SAT(sum_h w_out * tanh(WRAP(x) * w0 + b0) + b_out) of cell
+// c.  H > 0: the cell's weights are ws[0..H); H == 0: hidden of them in
+// global memory from index w, c_out apart.
+template <int H>
+__device__ __forceinline__ float cell_value(float xv, const lut::Cell& c,
+                                            const float4* __restrict__ ws,
+                                            const float* __restrict__ w0,
+                                            const float* __restrict__ b0,
+                                            const float* __restrict__ wo, int w,
+                                            int hidden, int c_out) {
+  float xq;
+  if (!fq::quant_fast<true, true>(xv, c.in, xq))
+    xq = fq::quantize_slow<true, true>(xv, c.f_in, c.i_in);
+  float y;
+  if constexpr (H > 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float4 wh = ws[h];
+      const float p = __fmul_rn(tanhf(__fadd_rn(__fmul_rn(xq, wh.x), wh.y)), wh.z);
+      y = h == 0 ? p : __fadd_rn(y, p);
+    }
+  } else {
+    for (int h = 0; h < hidden; ++h, w += c_out) {
+      const float p = __fmul_rn(
+          tanhf(__fadd_rn(__fmul_rn(xq, __ldg(w0 + w)), __ldg(b0 + w))), __ldg(wo + w));
+      y = h == 0 ? p : __fadd_rn(y, p);
+    }
+  }
+  return lut::sat_out(__fadd_rn(y, c.bias), c);
+}
+
+template <int H>
+__global__ void __launch_bounds__(MAX_WARPS * 32) lut_dense_forward_kernel(
     const float* __restrict__ x, const float* __restrict__ w0,
     const float* __restrict__ b0, const float* __restrict__ wo,
     const float* __restrict__ bo, const float* __restrict__ fi,
     const float* __restrict__ ii, const float* __restrict__ fo,
-    const float* __restrict__ io, float* __restrict__ out,
-    int batch, int c_in, int hidden, int c_out) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(batch) * c_out) return;
-  const int b = static_cast<int>(t / c_out);
-  const int o = static_cast<int>(t - static_cast<long long>(b) * c_out);
-  float acc = 0.0f;
-  for (int j = 0; j < c_in; ++j) {
-    const int cell = j * c_out + o;
-    const float xq = fq::wrap(x[static_cast<long long>(b) * c_in + j], fi[cell], ii[cell]);
-    float y = 0.0f;
-    for (int h = 0; h < hidden; ++h) {
-      const int w = (j * hidden + h) * c_out + o;
-      const float a = tanhf(__fadd_rn(__fmul_rn(xq, w0[w]), b0[w]));
-      y = __fadd_rn(y, __fmul_rn(a, wo[w]));
+    const float* __restrict__ io, float* __restrict__ out, int batch, int c_in,
+    int hidden, int c_out, int block_rows, int j_chunk, int o_chunk, int groups) {
+  extern __shared__ float4 smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = warp / o_chunk;                // warp (g, ol): output ol, rows 32 g + lane, ...
+  const int ol = warp - g * o_chunk;
+  const int row0 = blockIdx.x * block_rows;
+  const int n_rows = min(block_rows, batch - row0);
+  const int o0 = blockIdx.y * o_chunk;
+  const int o_n = min(o_chunk, c_out - o0);
+  const int xstride = j_chunk | 1;             // odd: a warp's 32 rows in 32 banks
+  lut::Cell* csm = reinterpret_cast<lut::Cell*>(smem);               // [j][o]
+  float4* wsm = smem + j_chunk * o_chunk * CELL_F4;                  // [j][o][h]
+  float* xs = reinterpret_cast<float*>(wsm + j_chunk * o_chunk * H); // [row][j]
+
+  for (int j0 = 0; j0 < c_in; j0 += j_chunk) {
+    const int jn = min(j_chunk, c_in - j0);
+    if (j0 > 0) __syncthreads();               // the previous chunk is read
+    for (int e = threadIdx.x; e < jn * o_n; e += blockDim.x) {
+      const int jl = e / o_n, oc = e - jl * o_n;
+      const int cell = (j0 + jl) * c_out + o0 + oc;
+      csm[jl * o_chunk + oc] = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell),
+                                              __ldg(fo + cell), __ldg(io + cell),
+                                              __ldg(bo + cell));
     }
-    y = __fadd_rn(y, bo[cell]);
-    acc = __fadd_rn(acc, fq::sat(y, fo[cell], io[cell]));
+    if constexpr (H > 0) {
+      for (int e = threadIdx.x; e < jn * H * o_n; e += blockDim.x) {
+        const int t = e / o_n, oc = e - t * o_n;        // t = jl * H + h
+        const int w = (j0 * H + t) * c_out + o0 + oc;
+        wsm[((t / H) * o_chunk + oc) * H + t % H] =
+            make_float4(__ldg(w0 + w), __ldg(b0 + w), __ldg(wo + w), 0.0f);
+      }
+    }
+    for (int e = threadIdx.x; e < n_rows * jn; e += blockDim.x) {
+      const int r = e / jn, jl = e - r * jn;
+      xs[r * xstride + jl] = __ldg(x + static_cast<long long>(row0 + r) * c_in + j0 + jl);
+    }
+    __syncthreads();
+    if (ol >= o_n) continue;                   // the last chunk of o may be short
+    const int o = o0 + ol;
+    for (int r = 32 * g + lane; r < n_rows; r += 32 * groups) {
+      float* dst = out + static_cast<long long>(row0 + r) * c_out + o;
+      float acc = j0 == 0 ? 0.0f : *dst;       // the sum so far, in index order
+      const float* xr = xs + r * xstride;
+#pragma unroll 4                               // four cells of a row in flight
+      for (int jl = 0; jl < jn; ++jl) {
+        const int cw = jl * o_chunk + ol;
+        acc = __fadd_rn(acc, cell_value<H>(xr[jl], csm[cw], wsm + cw * H, w0, b0, wo,
+                                           (j0 + jl) * hidden * c_out + o, hidden,
+                                           c_out));
+      }
+      *dst = acc;
+    }
   }
-  out[t] = acc;
+}
+
+using Kernel = decltype(&lut_dense_forward_kernel<0>);
+
+// kernels[H] is the instantiation for H = 1..MAX_H, kernels[0] the generic one
+const Kernel kernels[MAX_H + 1] = {
+    lut_dense_forward_kernel<0>,  lut_dense_forward_kernel<1>,
+    lut_dense_forward_kernel<2>,  lut_dense_forward_kernel<3>,
+    lut_dense_forward_kernel<4>,  lut_dense_forward_kernel<5>,
+    lut_dense_forward_kernel<6>,  lut_dense_forward_kernel<7>,
+    lut_dense_forward_kernel<8>,  lut_dense_forward_kernel<9>,
+    lut_dense_forward_kernel<10>, lut_dense_forward_kernel<11>,
+    lut_dense_forward_kernel<12>, lut_dense_forward_kernel<13>,
+    lut_dense_forward_kernel<14>, lut_dense_forward_kernel<15>,
+    lut_dense_forward_kernel<16>};
+
+Kernel kernel_for(int hidden) { return kernels[hidden <= MAX_H ? hidden : 0]; }
+
+// Dynamic shared memory of a block, as lut_dense_forward_kernel lays it out:
+// j_chunk x o_chunk cells and their weights (none for the generic
+// instantiation), then block_rows rows of x of odd stride.
+long long forward_smem(int block_rows, int j_chunk, int o_chunk, int hidden) {
+  const int h = hidden <= MAX_H ? hidden : 0;
+  return static_cast<long long>(j_chunk) * o_chunk * (CELL_F4 + h) * sizeof(float4) +
+         static_cast<long long>(block_rows) * (j_chunk | 1) * sizeof(float);
 }
 
 }  // namespace
 
+// The dynamic shared memory in bytes that lut_dense_forward gives a block
+// of these arguments; the launch planner (kernels/lut_dense.py) checks its
+// own count against it.
+extern "C" long long lut_dense_forward_smem(int block_rows, int j_chunk, int o_chunk,
+                                            int hidden) {
+  return forward_smem(block_rows, j_chunk, o_chunk, hidden);
+}
+
+// Resident blocks of `warps` warps an SM holds of the instantiation for
+// `hidden` on the current device, before shared memory limits them (the
+// occupancy query); 0 for invalid arguments.  Also lets that instantiation
+// take up to SMEM_MAX bytes of dynamic shared memory: call it before the
+// first launch on a device, outside any stream capture.
+extern "C" int lut_dense_forward_blocks_per_sm(int hidden, int warps) {
+  if (hidden < 1 || warps < 1 || warps > MAX_WARPS) return 0;
+  const void* k = reinterpret_cast<const void*>(kernel_for(hidden));
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, 32 * warps, 0) !=
+          cudaSuccess)
+    return 0;
+  return per_sm;
+}
+
+// x (batch, c_in); w0, b0, wo (c_in, hidden, c_out); bo and the integer-
+// valued widths fi, ii, fo, io (c_in, c_out); out (batch, c_out); all
+// float32, contiguous.  Blocks of block_rows rows (the last may be shorter)
+// by o_chunk outputs, groups x o_chunk warps, j_chunk input channels staged
+// at a time.
 extern "C" int lut_dense_forward(const void* x, const void* w0, const void* b0,
                                  const void* wo, const void* bo, const void* fi,
                                  const void* ii, const void* fo, const void* io,
                                  void* out, int batch, int c_in, int hidden,
-                                 int c_out, void* stream) {
-  const long long n = static_cast<long long>(batch) * c_out;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  lut_dense_forward_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+                                 int c_out, int block_rows, int j_chunk,
+                                 int o_chunk, int groups, void* stream) {
+  if (batch < 0 || c_in < 1 || hidden < 1 || c_out < 0 || block_rows < 1 ||
+      j_chunk < 1 || o_chunk < 1 || groups < 1 || o_chunk * groups > MAX_WARPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || c_out == 0) return 0;
+  const int h = hidden <= MAX_H ? hidden : 0;
+  const long long smem = forward_smem(block_rows, j_chunk, o_chunk, hidden);
+  const long long n_row = (static_cast<long long>(batch) + block_rows - 1) / block_rows;
+  const long long n_o = (static_cast<long long>(c_out) + o_chunk - 1) / o_chunk;
+  if (smem > SMEM_MAX || n_row > 0x7fffffffLL || n_o > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernels[h]<<<dim3(static_cast<unsigned>(n_row), static_cast<unsigned>(n_o)),
+               32 * o_chunk * groups, static_cast<size_t>(smem),
+               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w0),
       static_cast<const float*>(b0), static_cast<const float*>(wo),
       static_cast<const float*>(bo), static_cast<const float*>(fi),
       static_cast<const float*>(ii), static_cast<const float*>(fo),
-      static_cast<const float*>(io), static_cast<float*>(out), batch, c_in,
-      hidden, c_out);
+      static_cast<const float*>(io), static_cast<float*>(out), batch, c_in, hidden,
+      c_out, block_rows, j_chunk, o_chunk, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

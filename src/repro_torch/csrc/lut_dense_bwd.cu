@@ -44,8 +44,9 @@
 //    the last o, while other rows still compute.  The ragged batch edge is a
 //    shorter last split, never padding in memory.
 //  * Per chunk of o (all of C_out at the JSC shapes), the weights and each
-//    cell's quantizer constants are formed once for the block in shared
-//    memory, not by every thread for every o.
+//    cell's quantizer constants (lut_cell.cuh's make_cell, which B2 uses
+//    too) are formed once for the block in shared memory, not by every
+//    thread for every o.
 //  * One block barrier per chunk, not two per o.  After each o a warp folds
 //    its 3H+4 sums over its 32 lanes by recursive halving (31 shuffles for
 //    H = 8, where a butterfly per sum takes 140) into its own slot of shared
@@ -58,7 +59,8 @@
 // Exactness against the plain version (kernels/ref.py::lut_dense_bwd_ref):
 // the forward recompute runs B2's float32 operations in B2's order (tanhf,
 // __fmul_rn / __fadd_rn, no FMA contraction; the shortcuts above give the
-// same bits), so every quantizer decision is the plain version's.  The
+// same bits) on B2's cell constants and output rounding (lut_cell.cuh), so
+// every quantizer decision is the plain version's.  The
 // backward's products are fused into its sums (FMA, one rounding where the
 // plain version rounds twice), and the sums over the batch run in another
 // order: within 1e-4 of the plain version's largest gradient.
@@ -66,6 +68,7 @@
 #include <math.h>
 
 #include "fq.cuh"
+#include "lut_cell.cuh"
 
 namespace {
 
@@ -85,30 +88,6 @@ struct Sums {
                                      ? SLOT_FLOATS / (WARPS * NQ) : 32;
 };
 
-// One cell's quantizer constants, formed once per block by one thread.
-struct Cell {
-  fq::Width in;                  // the input WRAP's fast path (fq.cuh)
-  float f_in, i_in, bias;
-  float mul_o, scale_o, p2, hi;  // the output SAT: 2^f, 2^-f, 2^i, 2^i - 2^-f
-  bool fast_o, alive_o;
-};
-
-__device__ __forceinline__ Cell make_cell(float f_in, float i_in, float f_out,
-                                          float i_out, float bias) {
-  Cell c;
-  c.in = fq::make_width<true, true>(f_in, i_in);
-  c.f_in = f_in;
-  c.i_in = i_in;
-  c.bias = bias;
-  c.fast_o = fabsf(f_out) <= 126.0f && f_out == truncf(f_out);
-  c.mul_o = fq::pow2(c.fast_o ? static_cast<int>(f_out) : 0);
-  c.scale_o = ldexpf(1.0f, -static_cast<int>(f_out));
-  c.p2 = ldexpf(1.0f, static_cast<int>(i_out));
-  c.hi = __fsub_rn(c.p2, c.scale_o);
-  c.alive_o = __fadd_rn(__fadd_rn(f_out, i_out), 1.0f) > 0.0f;
-  return c;
-}
-
 // acc + a * b for the backward's sums over h and the batch.  The plain
 // version rounds the product first; the FMA rounds once, which moves each
 // term by at most half an ulp, far inside the tolerance of sums whose order
@@ -121,10 +100,6 @@ __device__ __noinline__ float2 wrap_in_slow(float x, float f, float i) {
   const float scale = ldexpf(1.0f, -static_cast<int>(f));
   return make_float2(fq::quantize(x, f, i, true, true),
                      __fmul_rn(rintf(__fdiv_rn(x, scale)), scale));
-}
-
-__device__ __noinline__ float round_slow(float y, float scale) {
-  return __fmul_rn(rintf(__fdiv_rn(y, scale)), scale);
 }
 
 // One step of the warp fold: lanes with bit S keep the upper half of v and
@@ -157,7 +132,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
   __shared__ float dxs[MAX_SPLIT_ROWS];
   __shared__ float slot[WARPS][O_CHUNK][NQ];
   __shared__ float4 wsm[O_CHUNK][H];         // the chunk's (w0, b0, w_out) by (o, h)
-  __shared__ Cell csm[O_CHUNK];
+  __shared__ lut::Cell csm[O_CHUNK];
   __shared__ bool last;
   const int split = blockIdx.x % n_split;
   const int j = blockIdx.x / n_split;
@@ -196,13 +171,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
     }
     for (int e = threadIdx.x; e < o_n; e += THREADS) {
       const int cell = j * c_out + o0 + e;
-      csm[e] = make_cell(__ldg(fi + cell), __ldg(ii + cell), __ldg(fo + cell),
+      csm[e] = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), __ldg(fo + cell),
                          __ldg(io + cell), __ldg(bo + cell));
     }
     __syncthreads();
     for (int ol = 0; ol < o_n; ++ol) {
       const int o = o0 + ol;
-      const Cell cl = csm[ol];
+      const lut::Cell cl = csm[ol];
       const fq::Width& wi = cl.in;
       const bool last_o = o == c_out - 1;
       float w0h[H], b0h[H], woh[H];
@@ -240,8 +215,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
           y = __fadd_rn(y, __fmul_rn(hv[h], woh[h]));
         }
         y = __fadd_rn(y, cl.bias);
-        const float r_out = cl.fast_o ? __fmul_rn(rintf(__fmul_rn(y, cl.mul_o)), cl.scale_o)
-                                      : round_slow(y, cl.scale_o);
+        const float r_out = lut::round_out(y, cl);
         // the quantizers' surrogates and the MLP's VJP
         const bool chi = r_out > cl.hi;
         const bool clo = r_out < -cl.p2;

@@ -44,6 +44,64 @@ def test_b2_kernel_matches_plain(device, ci, co, bn):
     torch.testing.assert_close(got, lut_dense_ref(x, *args), rtol=0, atol=0)
 
 
+def test_b2_bit_for_bit_at_the_path_shapes(device):
+    """B2 at the JSC-HLF layers, B = 16600: every output's bits the plain
+    version's, two launches alike, one launch counted a call."""
+    from chip_smoke import b2_check, b2_path_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_dense import lut_dense_fused
+
+    for (ci, co), x, args in b2_path_inputs(device):
+        before = ops.launch_counts()["lut_dense"]
+        b2_check(f"{ci}->{co}", lut_dense_fused, x, args)   # raises on a difference
+        assert ops.launch_counts()["lut_dense"] == before + 2
+
+
+def test_b2_bit_for_bit_in_every_case(device):
+    """``chip_smoke.b2_cases``: one cell at a time at the edge widths f =
+    +-127, i = -127 and dead cells; x with NaN, +-inf and codes past the
+    WRAP guard; H in 1, 3, 8, 16, 17 (the generic instantiation); B in 1, 31,
+    4099 by C_out in 1, 33.  Bit for bit, any NaN matching any NaN."""
+    from chip_smoke import b2_cases, b2_check
+    from repro_torch.kernels.lut_dense import lut_dense_fused
+
+    for label, x, args in b2_cases(np.random.default_rng(9), device):
+        b2_check(label, lut_dense_fused, x, args)
+
+
+def test_b2_graph_replay_equals_eager(device):
+    from chip_smoke import b2_graph_replay, b2_path_inputs
+    from repro_torch.kernels.lut_dense import lut_dense_fused
+
+    for _shape, x, args in b2_path_inputs(device):
+        assert b2_graph_replay(lut_dense_fused, x, args)
+
+
+def test_b2_is_one_device_kernel(device):
+    from chip_smoke import b2_random_args, device_kernels
+    from repro_torch.kernels.lut_dense import lut_dense_fused
+
+    for hidden in (8, 17):
+        x, args = b2_random_args(np.random.default_rng(hidden), 999, 16, 20, hidden, device)
+        lut_dense_fused(x, *args)
+        assert len(device_kernels(lambda: lut_dense_fused(x, *args))) == 1
+
+
+def test_b2_planner_counts_the_kernels_shared_memory(device):
+    """``block_smem`` (the planner's count, also used on the CPU) equals the
+    shared memory ``csrc/lut_dense.cu`` gives a block, for every H kind."""
+    from repro_torch.kernels.lut_dense import _lib, block_smem
+
+    lib = _lib()
+    for hidden in (1, 3, 8, 16, 17, 40):
+        for rows in (32, 128, 512):
+            for c_in in (1, 16, 20, 300):
+                for o_chunk in (1, 5, 20, 32):
+                    j_chunk, smem = block_smem(rows, c_in, o_chunk, hidden)
+                    assert smem == lib.lut_dense_forward_smem(rows, j_chunk, o_chunk,
+                                                              hidden)
+
+
 def test_b4_engine_matches_interpreter(device):
     from repro_torch.core.lower import compile_sequential
     from repro_torch.kernels import ops
