@@ -31,6 +31,10 @@ line:
    shapes with pruned cells, and one cell at a time at the edge widths f =
    +-127, i = -127, within ``B3_REL``; two launches bitwise equal; one
    device kernel a call (profiler); no register spills at H = 8 (ptxas);
+   then B3 past its unrolled instantiations (H = 17, 24, 32 at 20->5, B =
+   16600: its generic kernel) within ``B3_REL``, a graph replay at H = 24,
+   and one fused train step of a JSC-HLF stack at H = 24 against the plain
+   step;
 5. the serve slice, float: the 16,20,5 JSC-HLF stack from a seeded
    generator; its eval forward must equal ``DaisProgram.run_float`` of its
    own lowering exactly, and the fused forward (kernel B2) may differ from
@@ -39,25 +43,35 @@ line:
    require="pallas", verify="full"))`` behind the bit-exact gate, then 8
    request batches each of 1024 and 16600 random in-range codes; each must
    match the plain chain bit for bit and launch kernel B4 exactly once;
-7. the train slice: ``make_lut_train_step`` with ``lut_use_fused=True`` on
+7. kernel B4 on the served JSC-HLF chain: bit for bit equal to its plain
+   version at B in 1, 31, 129, 1024, 4099, 16600, 66400, two launches alike,
+   a CUDA-graph replay equal to an eager call, one device kernel a call, its
+   launch plan; then timed at B = 16600 and 1024 beside its bound and plain
+   version;
+8. the train slice: ``make_lut_train_step`` with ``lut_use_fused=True`` on
    JSC-HLF data for ``TRAIN_STEPS`` steps at B=16600, each launching B1
    twice, B2 once and B3 once; step 1 held against the same step through
    the plain versions (on the CPU, where the wrappers take them); the Adam
    step counter on the card, and beta and lr from it against the CPU's, in
    ulps; a finite, falling loss; then the trained model evaluated, lowered (eval forward ==
    ``run_float`` exactly) and served through B4 behind the gate;
-8. a seeded synthetic packed chain covering what JSC-HLF does not (sum
-   stages, non-identity gathers with the zero column, in-shifts, CMUL and
-   WRAP epilogues, int8/int16/int32/int64 lanes, int32 and int64 compute),
-   kernel B4 against its plain version bit for bit;
-9. the ``kernels`` JSON line, then the result line.
+9. seeded packed chains covering what JSC-HLF does not, kernel B4 against
+   its plain version bit for bit in int32 and int64 compute: the synthetic
+   chain (sum stages, non-identity gathers with the zero column, in-shifts,
+   CMUL and WRAP epilogues, int8/int16/int32/int64 lanes), the wide chain
+   (constants and a stage's tables in global memory, tiles of fewer than
+   32 rows) and a 16->64->5 stack served through the gate, whose first
+   stage's tables are read from global memory and second stage's staged in
+   shared memory in one launch;
+10. the ``kernels`` JSON line, then the result line.
 
-``python3 chip_smoke.py --b1-timing``, ``--b2-timing`` and ``--b3-timing``
-print only kernel B1's, B2's or B3's timings (and B2's or B3's registers
-and SASS), and no result line, to compare two trees in one call.
+``python3 chip_smoke.py --b1-timing``, ``--b2-timing``, ``--b3-timing`` and
+``--b4-timing`` print only kernel B1's, B2's, B3's or B4's timings (and B2's,
+B3's or B4's registers, B2's and B3's SASS, B4's launch plan), and no result
+line, to compare two trees in one call.
 
 The launch counters are zeroed just before each path (phases 5-6 and phase
-7, after its step-1 comparison) and read just after it: each path must have
+8, after its step-1 comparison) and read just after it: each path must have
 launched each of its kernels.  Float32 matmuls and convolutions run without
 TF32.  Any failure exits non-zero with no result line; so does a machine
 without a CUDA device.
@@ -791,24 +805,31 @@ def b3_check(label, fn, x, args, g):
     return rel
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
 
 
 def device_kernels(fn) -> list:
-    """Names of the device kernels one call of ``fn`` runs (torch.profiler).
-    A profile on the H100 has been seen to record no device event at all,
-    one profile in several, for a call that launched its kernel (PERF.md
-    section 7), so a profile that records none is taken again, up to
+    """Names of the device kernels one call of ``fn`` runs: the "kernel"
+    events of a torch.profiler trace of CPU and CUDA activity.  A profile of
+    CUDA activity alone has been seen on the H100 to record no device event,
+    several profiles in a row, for a call that launched its kernel (PERF.md
+    section 7), so this reads the exported trace, as ``trace_summary`` does,
+    and a profile that records none is taken again, up to
     ``PROFILE_TRIES`` of them."""
     import torch
+    from repro_torch.kernels import build as kbuild
 
+    path = kbuild.BUILD_DIR / "device_kernels.json"
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        prof.export_chrome_trace(str(path))
+        with open(path) as fh:
+            names = [e["name"] for e in json.load(fh).get("traceEvents", [])
+                     if e.get("cat") == "kernel"]
         if names:
             break
     return names
@@ -818,19 +839,25 @@ def ptxas_usage(name: str, kernel) -> str:
     """The ``-Xptxas -v`` lines (registers, spills) of the kernel whose
     mangled name contains every string of ``kernel``, from the last build
     of ``name``."""
+    for func, usage in ptxas_entries(name):
+        if all(k in func for k in kernel):
+            return usage
+    return "not in the build log"
+
+
+def ptxas_entries(name: str):
+    """Every kernel's ``-Xptxas -v`` lines (registers, spills, shared
+    memory) in the last build of ``name``: (mangled name, usage)."""
     from repro_torch.kernels import build as kbuild
 
-    lines = kbuild.build_log(name).splitlines()
-    for k, ln in enumerate(lines):
-        if "Compiling entry function" in ln and all(s in ln for s in kernel):
-            got = []
-            for nxt in lines[k + 1:]:
-                if "Compiling entry function" in nxt:
-                    break
-                if "spill" in nxt or "Used" in nxt:
-                    got.append(nxt.split(" : ", 1)[-1].strip())
-            return "; ".join(got)
-    return "not in the build log"
+    out, cur = [], None
+    for ln in kbuild.build_log(name).splitlines():
+        if "Compiling entry function" in ln:
+            cur = [ln.split("'")[1] if "'" in ln else ln.strip(), []]
+            out.append(cur)
+        elif cur is not None and ("spill" in ln or "Used" in ln):
+            cur[1].append(ln.split(" : ", 1)[-1].strip())
+    return [(f, "; ".join(u)) for f, u in out]
 
 
 def b3_timings(fn, device, tag="", per_row=None):
@@ -993,6 +1020,79 @@ def phase_b3(device, report):
                                "kernels_per_call": 1}
 
 
+def b3_graph_replay(fn, x, args, g) -> bool:
+    """One call of B3 (``fn``) captured in a CUDA graph and replayed, its
+    outputs poisoned before each replay, gives the eager call's bits."""
+    import torch
+
+    eager = [t.clone() for t in fn(x, *args, g)]          # before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, *args, g)
+    for _ in range(3):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(out, eager)):
+            return False
+    return True
+
+
+# B3 past its unrolled instantiations (ROADMAP C10): the generic kernel
+C10_HIDDEN = (17, 24, 32)
+C10_TRAIN_HIDDEN = 24
+C10_TRAIN_ROWS = 4096
+
+
+def phase_c10(device):
+    """B3 at hidden widths past 16 (its generic instantiation) against its
+    plain version at the train path's 20->5 layer, B = 16600; a graph replay;
+    then one fused train step of a JSC-HLF stack at H = 24 against the same
+    step through the plain versions."""
+    import torch
+    from repro_torch.core.lut_layers import LUTDense
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
+    from repro_torch.train.steps import make_lut_train_step
+
+    rng = np.random.default_rng(SEED + 11)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    for hidden in C10_HIDDEN:
+        layer = LUTDense(20, 5, hidden=hidden, device=device, generator=gen)
+        x, args, g = b3_args(layer, rng, JSC_BATCH, device)
+        rel = b3_check(f"20->5 H={hidden}", lut_dense_bwd_fused, x, args, g)
+        worst = max(B3_NAMES, key=rel.get)
+        kern = device_kernels(lambda: lut_dense_bwd_fused(x, *args, g))
+        check(len(kern) == 1, f"B3 H={hidden}: {len(kern)} device kernels a call: {kern}")
+        replay = hidden == C10_TRAIN_HIDDEN
+        if replay:
+            check(b3_graph_replay(lut_dense_bwd_fused, x, args, g),
+                  f"B3 H={hidden}: a CUDA-graph replay differs from the eager call")
+        ms = cuda_ms(lambda: lut_dense_bwd_fused(x, *args, g), iters=10)
+        print(f"[C10] B3 20->5 H={hidden} B={JSC_BATCH} (generic instantiation): all "
+              f"eight gradients within {B3_REL} of the plain version (worst {worst} "
+              f"{rel[worst]:.3g}); two launches bitwise equal; "
+              f"{'graph replay equal; ' if replay else ''}{len(kern)} device kernel a "
+              f"call ({kern[0]}); {ms:.4f} ms")
+    layers, hp, data = train_setup(device, hidden=C10_TRAIN_HIDDEN)
+    batch = {k: v[:C10_TRAIN_ROWS] for k, v in train_batch(data, 0).items()}
+    _, n_flips, worst = compare_step_to_plain(layers, hp, batch)
+    step_fn, init_fn = make_lut_train_step(layers, hp)
+    ops.reset_launch_counts()
+    _, m = step_fn(init_fn(), batch)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    check(got["lut_dense"] == 1 and got["lut_dense_bwd"] == 1 and bool(torch.isfinite(m["loss"])),
+          f"C10 train step at H={C10_TRAIN_HIDDEN}: launches {got}, loss {float(m['loss'])}")
+    print(f"[C10] one fused train step of the JSC-HLF stack at H={C10_TRAIN_HIDDEN}, "
+          f"B={C10_TRAIN_ROWS}: loss, CE, EBOPs and every gradient on the card within "
+          f"tolerance of the plain step (worst {worst:.3f} of it; {n_flips} cell codes "
+          f"flip); the fused step launched B2 and B3 once each: {got}")
+
+
 def phase_slice_float(device):
     import torch
     from repro_torch.core.lower import compile_sequential
@@ -1098,15 +1198,11 @@ def phase_slice_serve(device, prog):
     return chain, xs, packed, max_err
 
 
-def time_b4(chain, xs, packed, max_err, report):
-    from repro_torch.kernels.lut_serve_cuda import run_chain, run_chain_plain
-
-    x = xs[JSC_BATCH]
-    b = x.shape[0]
-    ms = cuda_ms(lambda: run_chain(chain, x))
-    plain_ms = cuda_ms(lambda: run_chain_plain(chain, x))
-    ms_small = cuda_ms(lambda: run_chain(chain, xs[SERVE_BATCHES[0]]))
-    item = x.element_size()
+def b4_bound(chain, packed, b):
+    """B4's bound on ``b`` rows: the input and output codes, the tables and
+    the constants moved once, or the chain's integer operations at the
+    FP32 rate, whichever is longer."""
+    item = chain.consts.element_size()                # the compute dtype
     n_bytes = (item * b * (chain.n_in + chain.n_out) + packed.table_bytes()
                + int(chain.consts.numel()) * item)
     ops_row = 0
@@ -1118,17 +1214,103 @@ def time_b4(chain, xs, packed, max_err, report):
                     if st.kind == "lut" else 3)
         epi = sum(10 if e.op == "REQUANT" else 1 for e in st.epilogue)
         ops_row += st.n_sites * st.c_out * (j_n * per_term + 1 + epi)
-    b_ms, b_by = bound(n_bytes, ops_row * b)
-    print(f"[B4] JSC-HLF chain B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+    return bound(n_bytes, ops_row * b)
+
+
+def b4_plan_text(chain, batches) -> str:
+    """The chain's launch plan: resident stages, tile rows and grid by batch."""
+    plan = getattr(chain, "plan", None)
+    if plan is None:
+        return "no launch plan (one 256-thread block per 128-row tile, tables read through L2)"
+    where = ", ".join(f"stage {k}: {'shared' if off >= 0 else 'global'}"
+                      for k, off in enumerate(plan.table_soff))
+    tiles = "; ".join(f"B={b}: {t.tile_rows} rows x {t.n_tiles} tiles on {t.grid} blocks, "
+                      f"{t.smem} B shared" for b in batches for t in (chain.tiles(b),))
+    return (f"constants {'shared' if plan.consts_soff >= 0 else 'global'}, {where}; "
+            f"{plan.n_bar} mbarriers; tile buffers strides {plan.stride_a}/{plan.stride_b}, "
+            f"at most {plan.max_tile_rows} rows; {chain.blocks} resident blocks; {tiles}")
+
+
+def b4_graph_replay(chain, x) -> bool:
+    """One B4 call captured in a CUDA graph and replayed, its output
+    poisoned before each replay, gives the eager call's codes."""
+    import torch
+    from repro_torch.kernels.lut_serve_cuda import run_chain
+
+    eager = run_chain(chain, x).clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run_chain(chain, x)
+    for _ in range(3):
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            return False
+    return True
+
+
+def b4_codes(prog, rng, b, dtype, device):
+    import torch
+    from repro_torch.kernels.lut_serve import input_code_bounds
+
+    lo, hi = input_code_bounds(prog)
+    codes = rng.integers(lo, hi + 1, (b, len(lo)), np.int64)
+    return torch.as_tensor(codes, device=device).to(dtype)
+
+
+# B4 on the JSC-HLF chain: every batch held bit for bit; the timing batches
+B4_BATCHES = (1, 31, 129, 1024, 4099, 16600, 66400)
+B4_TIMING_BATCHES = (1, 1024, 16600, 66400)
+
+
+def phase_b4(device, prog, chain, xs, packed, max_err, report):
+    """B4 on the served JSC-HLF chain: bit for bit equal to its plain version
+    at every batch of ``B4_BATCHES``, two launches alike, a graph replay
+    equal to an eager call, one device kernel a call; then timed at B =
+    16600 and 1024 beside its bound and its plain version."""
+    import torch
+    from repro_torch.kernels.lut_serve_cuda import run_chain, run_chain_plain
+
+    rng = np.random.default_rng(SEED + 12)
+    for b in B4_BATCHES:
+        x = b4_codes(prog, rng, b, chain.dtype, device)
+        got = run_chain(chain, x)
+        again = run_chain(chain, x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, run_chain_plain(chain, x)), f"B4 != plain chain at B={b}")
+        check(torch.equal(got, again), f"B4: two launches differ at B={b}")
+    for b in SERVE_BATCHES:
+        check(b4_graph_replay(chain, xs[b]),
+              f"B4: a CUDA-graph replay differs from the eager call at B={b}")
+    kern = device_kernels(lambda: run_chain(chain, xs[JSC_BATCH]))
+    check(len(kern) == 1, f"B4: {len(kern)} device kernels a call: {kern}")
+    print(f"[B4] JSC-HLF chain: bit for bit equal to the plain chain at B in "
+          f"{list(B4_BATCHES)}, two launches alike; graph replay equal at B in "
+          f"{list(SERVE_BATCHES)}; {len(kern)} device kernel a call ({kern[0]}); plan: "
+          f"{b4_plan_text(chain, SERVE_BATCHES)}")
+    x = xs[JSC_BATCH]
+    b = x.shape[0]
+    ms = cuda_ms(lambda: run_chain(chain, x), iters=50)
+    plain_ms = cuda_ms(lambda: run_chain_plain(chain, x))
+    small = xs[SERVE_BATCHES[0]]
+    ms_small = cuda_ms(lambda: run_chain(chain, small), iters=50)
+    b_ms, b_by = b4_bound(chain, packed, b)
+    bs_ms, _ = b4_bound(chain, packed, small.shape[0])
+    print(f"[B4] JSC-HLF chain B={b}: kernel {ms:.5f} ms, plain {plain_ms:.4f} "
           f"ms, bound {b_ms:.5f} ms ({b_by}); B={SERVE_BATCHES[0]}: kernel "
-          f"{ms_small:.4f} ms")
+          f"{ms_small:.5f} ms, bound {bs_ms:.5f} ms")
     report["lut_serve"] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                           "ms_1024": ms_small, "bound_ms_1024": bs_ms,
+                           "kernels_per_call": 1}
 
 
-def train_setup(device):
+def train_setup(device, hidden=HIDDEN):
     """The JSC-HLF train slice: layers, step, data and per-step batch indices
-    (``examples/quickstart.py``'s configuration at the paper's batch)."""
+    (``examples/quickstart.py``'s configuration at the paper's batch; the
+    stack's hidden width ``hidden``)."""
     import torch
     from repro_torch.core.ebops import BetaSchedule
     from repro_torch.core.quant import int_to_float, quantize_to_int
@@ -1149,7 +1331,7 @@ def train_setup(device):
             "codes_test": cte, "y_test": yte}
     idx = np.random.default_rng(SEED).integers(0, n_train, (steps, batch))
     data["idx"] = torch.as_tensor(idx, device=device)
-    layers = build_lut_stack(list(JSC_DIMS), HIDDEN, device=device,
+    layers = build_lut_stack(list(JSC_DIMS), hidden, device=device,
                              generator=torch.Generator().manual_seed(SEED))
     hp = TrainHParams(adam=AdamConfig(lr=LR), beta=BetaSchedule(5e-7, 1e-4, steps),
                       lr_schedule=cosine_restarts(LR, first_period=max(steps // 2, 1),
@@ -1459,25 +1641,78 @@ def synthetic_chain(rng, dtype):
                         out_cols=np.asarray([1, 0], np.int64), n_cols0=n_in)
 
 
-def phase_synthetic(device):
+def wide_chain(rng, dtype):
+    """A seeded packed chain whose constants and first stage's tables do not
+    fit a block's shared memory beside its tile buffers (900-wide rows):
+    the kernel reads both from global memory, and stages only the second
+    stage's tables; in int64 a tile holds fewer than 32 rows."""
     import torch
+    from repro_torch.kernels.lut_serve_cuda import PackedStage, PackedStages
+
+    ed = np.int32 if dtype == torch.int32 else np.int64
+    n_in, j1, c1, j2, c2 = 900, 900, 64, 64, 3
+    st1 = PackedStage(
+        "lut", np.arange(n_in, dtype=np.int64)[None], n_in,
+        rng.integers(-40, 40, (1, c1)).astype(ed), [], in_shift=None,
+        mask=np.full((j1, c1), 3, np.int64),
+        table=rng.integers(-128, 128, (j1, c1, 4)).astype(np.int8))
+    st2 = PackedStage(
+        "lut", np.arange(c1, dtype=np.int64)[None], c1,
+        rng.integers(-9, 9, (1, c2)).astype(ed), [], in_shift=None,
+        mask=np.full((j2, c2), 15, np.int64),
+        table=rng.integers(-2 ** 12, 2 ** 12, (j2, c2, 16)).astype(np.int16))
+    return PackedStages([st1, st2], out_cols=np.asarray([2, 0, 1], np.int64), n_cols0=n_in)
+
+
+def phase_synthetic(device):
+    """B4 on what JSC-HLF does not cover, bit for bit against its plain
+    version: the seeded synthetic chain, the wide chain (constants and one
+    stage's tables in global memory, tiles of fewer than 32 rows in int64),
+    in int32 and int64 compute; and a 16->64->5 stack served through the
+    gate, whose first stage's tables read global memory and second stage's
+    shared memory in one launch."""
+    import torch
+    from repro_torch.core.lower import compile_sequential
     from repro_torch.kernels.lut_serve_cuda import PackedChain, run_chain, run_chain_plain
+    from repro_torch.launch.serve import build_lut_stack
+    from repro_torch.serve.api import EngineSpec, build
 
     rng = np.random.default_rng(SEED + 3)
-    for dtype in (torch.int32, torch.int64):
-        packed = synthetic_chain(rng, dtype)
-        chain = PackedChain(packed, dtype, device)
-        x = torch.as_tensor(rng.integers(-2 ** 10, 2 ** 10, (4099, packed.n_cols0)),
-                            device=device).to(dtype)
-        got = run_chain(chain, x)
-        torch.cuda.synchronize()
-        want = run_chain_plain(chain, x)
-        check(torch.equal(got, want), f"B4 != plain on the synthetic {dtype} chain")
-        lanes = sorted({str(st.table.dtype) for st in packed.stages
-                        if st.table is not None})
-        print(f"[synthetic] {dtype} compute, lanes {lanes}, B=4099: "
-              f"{len(packed.stages)} stages (lut+sum, zero column, in-shifts, "
-              f"CMUL, SAT/WRAP epilogues) bit-exact vs the plain chain")
+    for make, b in ((synthetic_chain, 4099), (wide_chain, 1031)):
+        for dtype in (torch.int32, torch.int64):
+            packed = make(rng, dtype)
+            chain = PackedChain(packed, dtype, device)
+            x = torch.as_tensor(rng.integers(-2 ** 10, 2 ** 10, (b, packed.n_cols0)),
+                                device=device).to(dtype)
+            got = run_chain(chain, x)
+            again = run_chain(chain, x)
+            torch.cuda.synchronize()
+            want = run_chain_plain(chain, x)
+            check(torch.equal(got, want) and torch.equal(got, again),
+                  f"B4 != plain on the {make.__name__} {dtype}")
+            lanes = sorted({str(st.table.dtype) for st in packed.stages
+                            if st.table is not None})
+            print(f"[synthetic] {make.__name__} {dtype} compute, lanes {lanes}, B={b}: "
+                  f"{len(packed.stages)} stages bit-exact vs the plain chain, two launches "
+                  f"alike; plan: {b4_plan_text(chain, (b,))}")
+    layers = build_lut_stack([16, 64, 5], HIDDEN, device=device,
+                             generator=torch.Generator().manual_seed(SEED + 13))
+    prog = compile_sequential(layers, IN_F, IN_I)
+    built = build(prog, EngineSpec(engine="pallas", require="pallas", verify="full",
+                                   n_random=2048, seed=SEED), device=device)
+    chain, packed = plain_chain(prog, built.engine, device)
+    check(chain.plan.table_soff[0] < 0 <= chain.plan.table_soff[1],
+          f"16->64->5: expected stage 0 global and stage 1 shared, got {chain.plan}")
+    x = b4_codes(prog, np.random.default_rng(SEED + 14), 4099, built.engine.dtype, device)
+    out = built.engine.run(x)
+    torch.cuda.synchronize()
+    check(torch.equal(out, run_chain_plain(chain, x)), "16->64->5: B4 != the plain chain")
+    check(np.array_equal(out.cpu().numpy().astype(np.int64),
+                         prog.run(x.cpu().numpy().astype(np.int64))),
+          "16->64->5: served batch != DaisProgram.run")
+    print(f"[synthetic] 16->64->5 stack ({packed.table_bytes()} table bytes): gate PASSED "
+          f"on path {built.engine.path}; B=4099 served bit-exact vs the plain chain and "
+          f"DaisProgram.run; plan: {b4_plan_text(chain, (4099,))}")
 
 
 def main_b1_timing() -> int:
@@ -1525,6 +1760,55 @@ def main_b3_timing() -> int:
     return 0
 
 
+def main_b4_timing() -> int:
+    """``--b4-timing``: only B4's timings on the JSC-HLF chain (int32, as
+    served) at B in ``B4_TIMING_BATCHES``, with its registers, launch plan
+    and bound, and the fixed cost and cost per row of a line through the
+    device times (the same harness for two trees, run from each tree's
+    root); prints no result line."""
+    import torch
+    from repro_torch.core.analysis import analyze_ranges
+    from repro_torch.core.lower import compile_sequential
+    from repro_torch.kernels.lut_serve import compose_fused_stages
+    from repro_torch.kernels.lut_serve_cuda import (PackedChain, pack_stages, run_chain,
+                                                    run_chain_plain)
+    from repro_torch.launch.serve import build_lut_stack
+
+    phase_device()
+    tag = f" {os.path.basename(REPO)}"
+    device = torch.device("cuda:0")
+    for func, usage in ptxas_entries("lut_serve"):
+        print(f"[B4{tag}] ptxas {func}: {usage}")
+    layers = build_lut_stack(list(JSC_DIMS), HIDDEN, device=device,
+                             generator=torch.Generator().manual_seed(SEED))
+    prog = compile_sequential(layers, IN_F, IN_I)
+    stages, why = compose_fused_stages(prog, ranges=analyze_ranges(prog))
+    check(stages is not None, why)
+    packed = pack_stages(stages, torch.int32)
+    chain = PackedChain(packed, torch.int32, device)
+    print(f"[B4{tag}] plan: {b4_plan_text(chain, B4_TIMING_BATCHES)}")
+    rng = np.random.default_rng(SEED + 15)
+    times = []
+    for b in B4_TIMING_BATCHES:
+        x = b4_codes(prog, rng, b, torch.int32, device)
+        check(torch.equal(run_chain(chain, x), run_chain_plain(chain, x)),
+              f"B4 != plain chain at B={b}")
+        ms = cuda_ms(lambda: run_chain(chain, x), iters=50)
+        busy = host_us(lambda: run_chain(chain, x), busy=True)
+        idle = host_us(lambda: run_chain(chain, x), busy=False)
+        b_ms, b_by = b4_bound(chain, packed, b)
+        times.append(ms)
+        print(f"[B4{tag}] JSC-HLF chain B={b}: device {ms:.5f} ms a call (CUDA events, "
+              f"host ahead); host {busy[0]:.2f} us a call median, {busy[1]:.2f} mean "
+              f"(enqueue only, 1000 calls, device busy), {idle[0]:.2f} median, "
+              f"{idle[1]:.2f} mean (device idle between calls); bound {b_ms:.5f} ms "
+              f"({b_by})")
+    slope, fixed = np.polyfit(np.asarray(B4_TIMING_BATCHES, float), times, 1)
+    print(f"[B4{tag}] line through the device times: {fixed * 1e3:.2f} us fixed (launch "
+          f"and staging), {slope * 1e6:.3f} ns a row")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1537,6 +1821,8 @@ def main() -> int:
         return main_b2_timing()
     if sys.argv[1:] == ["--b3-timing"]:
         return main_b3_timing()
+    if sys.argv[1:] == ["--b4-timing"]:
+        return main_b4_timing()
     # reference precision: no float32 matmul or convolution rounds via TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1552,10 +1838,15 @@ def main() -> int:
         phase_b1(device, report)
         phase_b2(device, report)
         phase_b3(device, report)
+        phase_c10(device)
         ops.reset_launch_counts()                      # path 1: serve
         prog = phase_slice_float(device)
         chain, xs, packed, b4_err = phase_slice_serve(device, prog)
         launches["serve"] = ops.launch_counts()
+        # B4 against its plain version and timed, off the main path and before
+        # the train path's torch.profiler window (a profile taken after it in
+        # the same process has recorded no device kernel)
+        phase_b4(device, prog, chain, xs, packed, b4_err, report)
         train_state = phase_train(device)
         ops.reset_launch_counts()                      # path 2: train, then serve
         train = phase_train_run(device, *train_state)
@@ -1564,7 +1855,6 @@ def main() -> int:
             check(all(launches[path][n] > 0 for n in names),
                   f"the {path} path skipped a kernel: launches {launches[path]}")
             print(f"[main-path] {path}: kernel launches {launches[path]}")
-        time_b4(chain, xs, packed, b4_err, report)
         phase_synthetic(device)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -38,7 +38,8 @@
 //  * A thread walks the block's rows tid, tid + 256, ... (a runtime count)
 //    for one o at a time, with h, the weights of (j, o) and the 3H+4
 //    gradient sums in registers (H is a template parameter, 1..16; 126
-//    registers and no spills at H = 8, two blocks an SM).  Its rows' x and
+//    registers and no spills at H = 8, two blocks an SM; any other H runs
+//    lut_dense_bwd_generic, below).  Its rows' x and
 //    their dx, summed over o, live in shared memory that only this thread
 //    touches; the x loads are all issued at once, and dx is stored during
 //    the last o, while other rows still compute.  The ragged batch edge is a
@@ -64,6 +65,16 @@
 // backward's products are fused into its sums (FMA, one rounding where the
 // plain version rounds twice), and the sums over the batch run in another
 // order: within 1e-4 of the plain version's largest gradient.
+//
+// Any H > 16 runs lut_dense_bwd_generic: the same grid, partials and
+// tickets, the forward recomputed in the same operations, but H a runtime
+// count that cannot size register arrays.  Per o, a first pass over the
+// block's rows recomputes y over every h (the SAT mask needs all of them)
+// and keeps the row's output cotangent gy in shared memory; then the hidden
+// units run in chunks of HC = 16 with their 3 HC sums in registers, adding
+// each row's share of gxq into shared memory; a last pass forms df_in and
+// dx from it.  One o at a time, so no sum array grows with H or C_out; it
+// recomputes each tanh twice and spills, and is not timed.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -79,6 +90,7 @@ constexpr int MAX_H = 16;
 constexpr int MAX_SPLIT_ROWS = 2048;          // rows of one block: x and dx in shared memory
 constexpr int SLOT_FLOATS = 6144;             // per-warp sums of one chunk of o (24 KB)
 constexpr float LN2 = 0.693147180559945309f;  // float32(log 2), as the plain version
+constexpr int HC = 16;                        // hidden units of a chunk of the generic kernel
 
 template <int H>
 struct Sums {
@@ -113,6 +125,48 @@ __device__ __forceinline__ void fold_half(float (&v)[N], int lane) {
     const float keep = upper ? v[k + N / 32 * S] : v[k];
     v[k] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, S));
   }
+}
+
+// The generic kernel's end, the unrolled one's with H at run time (kept
+// apart so that the unrolled kernels compile to the code they had): the last
+// block of j to finish sums the partials of its (q, o) in split order and
+// writes the gradients, then resets j's ticket for the next launch.
+__device__ __forceinline__ void finish(
+    float* __restrict__ dw0, float* __restrict__ db0, float* __restrict__ dwo,
+    float* __restrict__ dbo, float* __restrict__ dfi, float* __restrict__ dfo,
+    float* __restrict__ dio, const float* __restrict__ partial,
+    unsigned* __restrict__ tickets, bool& last, int j, int c_in, int c_out, int n_split,
+    int hidden) {
+  const int NQ = 3 * hidden + 4;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + j, 1u) == static_cast<unsigned>(n_split - 1);
+  __syncthreads();
+  if (!last) return;
+  const long long stride = static_cast<long long>(c_in) * NQ * c_out;   // one split
+  for (int e = threadIdx.x; e < NQ * c_out; e += THREADS) {
+    const int q = e / c_out, o = e - q * c_out;
+    const float* p = partial + (static_cast<long long>(j) * NQ + q) * c_out + o;
+    float s = 0.0f;
+    for (int t = 0; t < n_split; t += 16) {       // 16 loads in flight, summed in order
+      float a[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) a[u] = t + u < n_split ? __ldcg(p + (t + u) * stride) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (t + u < n_split) s = __fadd_rn(s, a[u]);
+    }
+    const int cell = j * c_out + o;
+    const int H = hidden;
+    if (q < H) dw0[(j * H + q) * c_out + o] = s;
+    else if (q < 2 * H) db0[(j * H + q - H) * c_out + o] = s;
+    else if (q < 3 * H) dwo[(j * H + q - 2 * H) * c_out + o] = s;
+    else if (q == 3 * H) dbo[cell] = s;
+    else if (q == 3 * H + 1) dfi[cell] = s;
+    else if (q == 3 * H + 2) dfo[cell] = s;
+    else dio[cell] = s;
+  }
+  if (threadIdx.x == 0) tickets[j] = 0u;
 }
 
 template <int H>
@@ -301,6 +355,186 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
   if (threadIdx.x == 0) tickets[j] = 0u;
 }
 
+// H > 16: the kernel above with H a runtime count (the note at the top).
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ wo,
+    const float* __restrict__ bo, const float* __restrict__ fi,
+    const float* __restrict__ ii, const float* __restrict__ fo,
+    const float* __restrict__ io, const float* __restrict__ g,
+    float* __restrict__ dx, float* __restrict__ dw0, float* __restrict__ db0,
+    float* __restrict__ dwo, float* __restrict__ dbo, float* __restrict__ dfi,
+    float* __restrict__ dfo, float* __restrict__ dio, float* __restrict__ partial,
+    unsigned* __restrict__ tickets, int batch, int c_in, int c_out, int n_split,
+    int split_rows, int hidden) {
+  constexpr int M = (3 * HC + 31) / 32;      // sums a lane holds after the fold
+  __shared__ float xs[MAX_SPLIT_ROWS];
+  __shared__ float dxs[MAX_SPLIT_ROWS];
+  __shared__ float gys[MAX_SPLIT_ROWS];      // the row's output cotangent, this o
+  __shared__ float gxs[MAX_SPLIT_ROWS];      // the row's gxq so far, this o
+  __shared__ float slot[WARPS][3 * HC];
+  __shared__ lut::Cell csm;
+  __shared__ bool last;
+  const int split = blockIdx.x % n_split;
+  const int j = blockIdx.x / n_split;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = split * split_rows;
+  const int n_rows = min(split_rows, batch - row0);
+  const int NQ = 3 * hidden + 4;
+
+  // a row's slots in xs, dxs, gys and gxs are touched by its thread alone
+  for (int r = threadIdx.x; r < n_rows; r += THREADS) {
+    xs[r] = __ldg(x + static_cast<long long>(row0 + r) * c_in + j);
+    dxs[r] = 0.0f;
+  }
+  for (int o = 0; o < c_out; ++o) {
+    __syncthreads();                         // the previous o is done with csm
+    if (threadIdx.x == 0) {
+      const int cell = j * c_out + o;
+      csm = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), __ldg(fo + cell),
+                           __ldg(io + cell), __ldg(bo + cell));
+    }
+    __syncthreads();
+    const lut::Cell cl = csm;
+    const fq::Width& wi = cl.in;
+    const float* w0o = w0 + static_cast<long long>(j) * hidden * c_out + o;  // h at h * c_out
+    const float* b0o = b0 + static_cast<long long>(j) * hidden * c_out + o;
+    const float* woo = wo + static_cast<long long>(j) * hidden * c_out + o;
+    float* part = partial + (static_cast<long long>(split) * c_in + j) * NQ * c_out + o;
+    // the input quantizer, as the kernel above: xq and round(x)
+    auto quant_in = [&](float xv, float& xq, float& r_in) {
+      xq = 0.0f;
+      r_in = 0.0f;
+      if (wi.fast) {
+        const float c = rintf(__fmul_rn(xv, wi.mul));
+        r_in = __fmul_rn(c, wi.scale);
+        if (!fq::wrap_code(c, wi, xq)) xq = fq::quantize_slow<true, true>(xv, cl.f_in, cl.i_in);
+      } else if (wi.live) {
+        const float2 s = wrap_in_slow(xv, cl.f_in, cl.i_in);
+        xq = s.x;
+        r_in = s.y;
+      }
+    };
+
+    // pass 1: the forward over every h, in kernel B2's order, and the cell's sums
+    float s_dbo = 0.0f, s_dfo = 0.0f, s_dio = 0.0f;
+    for (int r = threadIdx.x; r < n_rows; r += THREADS) {
+      const float xv = xs[r];
+      const float gv = __ldg(g + static_cast<long long>(row0 + r) * c_out + o);
+      float xq, r_in;
+      quant_in(xv, xq, r_in);
+      float y = 0.0f;
+      for (int h = 0; h < hidden; ++h) {
+        const float p = __fmul_rn(
+            tanhf(__fadd_rn(__fmul_rn(xq, __ldg(w0o + h * c_out)), __ldg(b0o + h * c_out))),
+            __ldg(woo + h * c_out));
+        y = h == 0 ? p : __fadd_rn(y, p);
+      }
+      y = __fadd_rn(y, cl.bias);
+      const float r_out = lut::round_out(y, cl);
+      const bool chi = r_out > cl.hi;
+      const bool clo = r_out < -cl.p2;
+      const float gy = (cl.alive_o && !chi && !clo) ? gv : 0.0f;
+      const float dfo_s = chi ? __fmul_rn(LN2, cl.scale_o)
+                              : (clo ? 0.0f : __fmul_rn(LN2, __fsub_rn(y, r_out)));
+      const float dio_s = chi ? __fmul_rn(LN2, cl.p2) : (clo ? __fmul_rn(-LN2, cl.p2) : 0.0f);
+      s_dfo = cl.alive_o ? madd(dfo_s, gv, s_dfo) : s_dfo;
+      s_dio = cl.alive_o ? madd(dio_s, gv, s_dio) : s_dio;
+      s_dbo = __fadd_rn(s_dbo, gy);
+      gys[r] = gy;
+      gxs[r] = 0.0f;
+    }
+
+    // pass 2: the MLP's VJP, HC hidden units at a time
+    for (int h0 = 0; h0 < hidden; h0 += HC) {
+      const int hn = min(HC, hidden - h0);
+      float w0h[HC], b0h[HC], woh[HC], acc[3 * HC];
+#pragma unroll
+      for (int h = 0; h < HC; ++h) {
+        const bool in = h < hn;
+        w0h[h] = in ? __ldg(w0o + (h0 + h) * c_out) : 0.0f;
+        b0h[h] = in ? __ldg(b0o + (h0 + h) * c_out) : 0.0f;
+        woh[h] = in ? __ldg(woo + (h0 + h) * c_out) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < 3 * HC; ++q) acc[q] = 0.0f;
+      for (int r = threadIdx.x; r < n_rows; r += THREADS) {
+        float xq, r_in;
+        quant_in(xs[r], xq, r_in);
+        const float gy = gys[r];
+        float gxq = 0.0f;
+#pragma unroll
+        for (int h = 0; h < HC; ++h) {
+          if (h < hn) {
+            const float hv = tanhf(__fadd_rn(__fmul_rn(xq, w0h[h]), b0h[h]));
+            acc[2 * HC + h] = madd(hv, gy, acc[2 * HC + h]);
+            const float gz = __fmul_rn(__fmul_rn(gy, woh[h]), madd(-hv, hv, 1.0f));
+            acc[HC + h] = __fadd_rn(acc[HC + h], gz);
+            acc[h] = madd(gz, xq, acc[h]);
+            gxq = madd(gz, w0h[h], gxq);
+          }
+        }
+        gxs[r] = __fadd_rn(gxs[r], gxq);
+      }
+      float v[32 * M];
+#pragma unroll
+      for (int q = 0; q < 32 * M; ++q) v[q] = q < 3 * HC ? acc[q] : 0.0f;
+      fold_half<16>(v, lane);
+      fold_half<8>(v, lane);
+      fold_half<4>(v, lane);
+      fold_half<2>(v, lane);
+      fold_half<1>(v, lane);
+#pragma unroll
+      for (int k = 0; k < M; ++k)
+        if (lane * M + k < 3 * HC) slot[warp][lane * M + k] = v[k];
+      __syncthreads();
+      for (int e = threadIdx.x; e < 3 * hn; e += THREADS) {
+        const int t = e / hn, h = e - t * hn;   // t: 0 dw0, 1 db0, 2 dw_out
+        float s = slot[0][t * HC + h];
+#pragma unroll
+        for (int w = 1; w < WARPS; ++w) s = __fadd_rn(s, slot[w][t * HC + h]);
+        part[static_cast<long long>(t * hidden + h0 + h) * c_out] = s;
+      }
+      __syncthreads();                       // slot is read before the next chunk
+    }
+
+    // pass 3: the input quantizer's surrogate and dx
+    float s_dfi = 0.0f;
+    const bool last_o = o == c_out - 1;
+    for (int r = threadIdx.x; r < n_rows; r += THREADS) {
+      const float xv = xs[r];
+      float xq, r_in;
+      quant_in(xv, xq, r_in);
+      const float gxq = gxs[r];
+      const float dfi_s = __fmul_rn(__fmul_rn(LN2, __fsub_rn(xv, r_in)), gxq);
+      s_dfi = __fadd_rn(s_dfi, wi.live ? dfi_s : 0.0f);
+      const float d = __fadd_rn(dxs[r], wi.live ? gxq : 0.0f);
+      if (last_o)
+        dx[static_cast<long long>(row0 + r) * c_in + j] = d;
+      else
+        dxs[r] = d;
+    }
+    float v[32] = {s_dbo, s_dfi, s_dfo, s_dio};   // q = 3H .. 3H + 3
+    fold_half<16>(v, lane);
+    fold_half<8>(v, lane);
+    fold_half<4>(v, lane);
+    fold_half<2>(v, lane);
+    fold_half<1>(v, lane);
+    if (lane < 4) slot[warp][lane] = v[0];
+    __syncthreads();
+    if (threadIdx.x < 4) {
+      float s = slot[0][threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) s = __fadd_rn(s, slot[w][threadIdx.x]);
+      part[static_cast<long long>(3 * hidden + threadIdx.x) * c_out] = s;
+    }
+  }
+
+  finish(dw0, db0, dwo, dbo, dfi, dfo, dio, partial, tickets, last, j, c_in, c_out,
+         n_split, hidden);
+}
+
 using Kernel = decltype(&lut_dense_bwd_kernel<1>);
 
 // kernels[H - 1] is the instantiation for H
@@ -312,19 +546,21 @@ const Kernel kernels[MAX_H] = {
     lut_dense_bwd_kernel<13>, lut_dense_bwd_kernel<14>, lut_dense_bwd_kernel<15>,
     lut_dense_bwd_kernel<16>};
 
-}  // namespace
+const void* kernel_for(int hidden) {
+  return hidden <= MAX_H ? reinterpret_cast<const void*>(kernels[hidden - 1])
+                         : reinterpret_cast<const void*>(lut_dense_bwd_generic);
+}
 
-extern "C" int lut_dense_backward_max_hidden() { return MAX_H; }
+}  // namespace
 
 extern "C" int lut_dense_backward_max_split_rows() { return MAX_SPLIT_ROWS; }
 
 // Resident blocks an SM holds of the instantiation for `hidden` on the
-// current device (the occupancy query); 0 for an unsupported hidden.
+// current device (the occupancy query); 0 for an invalid hidden.
 extern "C" int lut_dense_backward_blocks_per_sm(int hidden) {
-  if (hidden < 1 || hidden > MAX_H) return 0;
+  if (hidden < 1) return 0;
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, reinterpret_cast<const void*>(kernels[hidden - 1]), THREADS, 0) !=
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_for(hidden), THREADS, 0) !=
       cudaSuccess)
     return 0;
   return per_sm;
@@ -342,24 +578,20 @@ extern "C" int lut_dense_backward(
     void* dbo, void* dfi, void* dfo, void* dio, void* partial, void* tickets,
     int batch, int c_in, int hidden, int c_out, int n_split, int split_rows,
     void* stream) {
-  if (hidden < 1 || hidden > MAX_H || n_split < 1 || split_rows < 0 ||
+  if (hidden < 1 || n_split < 1 || split_rows < 0 ||
       split_rows > MAX_SPLIT_ROWS ||
       static_cast<long long>(n_split) * split_rows < batch ||
       (n_split > 1 && static_cast<long long>(n_split - 1) * split_rows >= batch) ||
       static_cast<long long>(n_split) * c_in > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (c_in == 0 || c_out == 0) return 0;
-  kernels[hidden - 1]<<<n_split * c_in, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w0),
-      static_cast<const float*>(b0), static_cast<const float*>(wo),
-      static_cast<const float*>(bo), static_cast<const float*>(fi),
-      static_cast<const float*>(ii), static_cast<const float*>(fo),
-      static_cast<const float*>(io), static_cast<const float*>(g),
-      static_cast<float*>(dx), static_cast<float*>(dw0), static_cast<float*>(db0),
-      static_cast<float*>(dwo), static_cast<float*>(dbo), static_cast<float*>(dfi),
-      static_cast<float*>(dfo), static_cast<float*>(dio), static_cast<float*>(partial),
-      static_cast<unsigned*>(tickets), batch, c_in, c_out, n_split, split_rows);
-  return static_cast<int>(cudaGetLastError());
+  // the generic kernel takes `hidden` as one more argument
+  void* args[] = {&x,  &w0,  &b0,  &wo,      &bo,      &fi,    &ii,   &fo,    &io,
+                  &g,  &dx,  &dw0, &db0,     &dwo,     &dbo,   &dfi,  &dfo,   &dio,
+                  &partial, &tickets, &batch, &c_in, &c_out, &n_split, &split_rows, &hidden};
+  return static_cast<int>(cudaLaunchKernel(kernel_for(hidden), dim3(n_split * c_in),
+                                           dim3(THREADS), args, 0,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* lut_dense_backward_error_string(int code) {

@@ -59,10 +59,8 @@ def _lib() -> ctypes.CDLL:
         lib.lut_dense_backward.argtypes = [ctypes.c_void_p] * 20 + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.lut_dense_backward.restype = ctypes.c_int
-        for fn in (lib.lut_dense_backward_max_hidden,
-                   lib.lut_dense_backward_max_split_rows):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
+        lib.lut_dense_backward_max_split_rows.argtypes = []
+        lib.lut_dense_backward_max_split_rows.restype = ctypes.c_int
         lib.lut_dense_backward_blocks_per_sm.argtypes = [ctypes.c_int]
         lib.lut_dense_backward_blocks_per_sm.restype = ctypes.c_int
         lib.lut_dense_backward_error_string.argtypes = [ctypes.c_int]
@@ -76,7 +74,8 @@ def lut_dense_bwd_fused(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, g):
 
     Returns ``(dx, dw0, db0, dw_out, db_out, df_in, df_out, di_out)``;
     ``di_in`` is identically zero under WRAP and left to the caller.  CPU
-    tensors take the plain version; CUDA tensors launch kernel B3.  The
+    tensors take the plain version; CUDA tensors launch kernel B3, at any
+    H >= 1 (H > 16 on its generic instantiation).  The
     kernel's scratch (its tickets and partial sums) is kept per device, so
     calls on one device run one after another (one stream, or streams that
     wait on each other); the first call of a shape on a device queries the
@@ -97,8 +96,8 @@ def _check(args) -> None:
     """Raise unless the ten inputs are what the kernel reads: float32,
     contiguous, on x's device, with the shapes of ``ref.lut_dense_bwd_ref``."""
     x, w0 = args[0], args[1]
-    if x.dim() != 2 or w0.dim() != 3:
-        raise ValueError(f"x must be (B, C_in) and w0 (C_in, H, C_out), got "
+    if x.dim() != 2 or w0.dim() != 3 or w0.shape[1] < 1:
+        raise ValueError(f"x must be (B, C_in) and w0 (C_in, H >= 1, C_out), got "
                          f"{tuple(x.shape)} and {tuple(w0.shape)}")
     (batch, c_in), (_, hidden, c_out) = x.shape, w0.shape
     cell, w = (c_in, c_out), (c_in, hidden, c_out)
@@ -119,9 +118,6 @@ def _plan(lib, device, batch, c_in, hidden, c_out) -> LaunchPlan:
     key = (device.index, batch, c_in, hidden, c_out)
     plan = _PLANS.get(key)
     if plan is None:
-        if hidden > lib.lut_dense_backward_max_hidden():
-            raise ValueError(f"hidden {hidden} exceeds the kernel's maximum "
-                             f"{lib.lut_dense_backward_max_hidden()}")
         occ = _BLOCKS_PER_SM.get((device.index, hidden))
         if occ is None:
             with torch.cuda.device(device):

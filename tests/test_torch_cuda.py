@@ -1,5 +1,6 @@
-"""Kernels B1-B4 on the card against their plain versions, and one fused
-train step on the card against the same step through the plain versions.
+"""Kernels B1-B4 on the card against their plain versions, and fused train
+steps on the card (H = 8, and H = 24 past B3's unrolled instantiations)
+against the same step through the plain versions.
 
 Every test here needs an NVIDIA sm_90 card (the H100) and ``nvcc``; without
 one they skip.  Run them on the card with::
@@ -157,6 +158,89 @@ def test_b4_synthetic_chain_matches_plain(device, dtype):
     assert torch.equal(run_chain(chain, x), run_chain_plain(chain, x))
 
 
+@pytest.mark.parametrize("make", ["synthetic_chain", "wide_chain"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_b4_seeded_chains_match_plain_and_repeat(device, make, dtype):
+    """The synthetic chain (sum stages, in-shifts, epilogues, four lanes) and
+    the wide one (constants and a stage's tables in global memory, tiles of
+    fewer than 32 rows in int64): bit for bit, two launches alike."""
+    import chip_smoke
+    from repro_torch.kernels.lut_serve_cuda import (PackedChain, run_chain,
+                                                    run_chain_plain)
+
+    rng = np.random.default_rng(5)
+    packed = getattr(chip_smoke, make)(rng, dtype)
+    chain = PackedChain(packed, dtype, device)
+    for b in (1, 31, 129, 1031):
+        x = torch.as_tensor(rng.integers(-2 ** 10, 2 ** 10, (b, packed.n_cols0)),
+                            device=device).to(dtype)
+        got = run_chain(chain, x)
+        assert torch.equal(got, run_chain_plain(chain, x)), b
+        assert torch.equal(got, run_chain(chain, x)), b
+
+
+def _jsc_chain(device, dims=(16, 20, 5), seed=0):
+    import chip_smoke
+    from repro_torch.core.lower import compile_sequential
+    from repro_torch.launch.serve import build_lut_stack
+    from repro_torch.serve.api import EngineSpec, build
+
+    layers = build_lut_stack(list(dims), 8, device=device,
+                             generator=torch.Generator().manual_seed(seed))
+    prog = compile_sequential(layers, 4, 2)
+    built = build(prog, EngineSpec(engine="pallas", require="pallas", verify="full",
+                                   n_random=2048, seed=0), device=device)
+    chain, packed = chip_smoke.plain_chain(prog, built.engine, device)
+    return prog, built, chain
+
+
+def test_b4_bit_for_bit_at_every_batch(device):
+    """B4 on the JSC-HLF chain at B in 1, 31, 129, 1024, 4099, 16600, 66400:
+    the plain chain's codes, two launches alike, one launch counted a call."""
+    from chip_smoke import B4_BATCHES, b4_codes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_serve_cuda import run_chain, run_chain_plain
+
+    prog, _, chain = _jsc_chain(device)
+    rng = np.random.default_rng(6)
+    for b in B4_BATCHES:
+        x = b4_codes(prog, rng, b, chain.dtype, device)
+        before = ops.launch_counts()["lut_serve"]
+        got = run_chain(chain, x)
+        again = run_chain(chain, x)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["lut_serve"] == before + 2
+        assert torch.equal(got, run_chain_plain(chain, x)), b
+        assert torch.equal(got, again), b
+
+
+def test_b4_graph_replay_and_one_device_kernel(device):
+    from chip_smoke import b4_codes, b4_graph_replay, device_kernels
+    from repro_torch.kernels.lut_serve_cuda import run_chain
+
+    prog, _, chain = _jsc_chain(device, seed=2)
+    for b in (1024, 16600):
+        x = b4_codes(prog, np.random.default_rng(b), b, chain.dtype, device)
+        assert b4_graph_replay(chain, x), b
+        assert len(device_kernels(lambda: run_chain(chain, x))) == 1, b
+
+
+def test_b4_global_and_resident_stages_in_one_launch(device):
+    """A 16->64->5 stack: its first stage's 524 KB of tables cannot stay in
+    shared memory and are read from global memory, its second stage's are
+    staged; served behind the gate, bit for bit."""
+    from chip_smoke import b4_codes
+    from repro_torch.kernels.lut_serve_cuda import run_chain_plain
+
+    prog, built, chain = _jsc_chain(device, dims=(16, 64, 5), seed=3)
+    assert chain.plan.table_soff[0] < 0 <= chain.plan.table_soff[1]
+    x = b4_codes(prog, np.random.default_rng(7), 4099, chain.dtype, device)
+    out = built.engine.run(x)
+    assert torch.equal(out, run_chain_plain(chain, x))
+    np.testing.assert_array_equal(out.cpu().numpy().astype(np.int64),
+                                  prog.run(x.cpu().numpy().astype(np.int64)))
+
+
 def test_b1_bit_exact_in_every_mode(device):
     """Every case of ``chip_smoke.b1_cases`` (width modes, expand views, a
     copied stride-0 middle axis, edge values and widths) through
@@ -258,25 +342,32 @@ def test_b3_other_shapes(device, b, ci, co, h):
 def test_b3_graph_replay_equals_eager(device):
     """One B3 call captured in a CUDA graph and replayed gives the eager
     call's bits: the kernel resets its own counters."""
-    from chip_smoke import b3_args
+    from chip_smoke import b3_args, b3_graph_replay
     from repro_torch.core.lut_layers import LUTDense
     from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
 
     layer = LUTDense(20, 5, hidden=8, device=device,
                      generator=torch.Generator().manual_seed(4))
     x, args, g = b3_args(layer, np.random.default_rng(4), 16600, device)
-    eager = [t.clone() for t in lut_dense_bwd_fused(x, *args, g)]   # before capture
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = lut_dense_bwd_fused(x, *args, g)
-    for _ in range(3):
-        for t in out:
-            t.fill_(float("nan"))
-        graph.replay()
-        torch.cuda.synchronize()
-        for a, b in zip(out, eager):
-            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert b3_graph_replay(lut_dense_bwd_fused, x, args, g)
+
+
+@pytest.mark.parametrize("hidden", [17, 24, 32])
+def test_b3_past_sixteen_hidden_matches_plain(device, hidden):
+    """ROADMAP C10: B3's generic instantiation at the train path's 20->5
+    layer, B = 16600: within B3_REL of the plain version, two launches
+    bitwise equal, a graph replay equal to an eager call, one device kernel."""
+    from chip_smoke import B3_REL, b3_args, b3_check, b3_graph_replay, device_kernels
+    from repro_torch.core.lut_layers import LUTDense
+    from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
+
+    layer = LUTDense(20, 5, hidden=hidden, device=device,
+                     generator=torch.Generator().manual_seed(hidden))
+    x, args, g = b3_args(layer, np.random.default_rng(hidden), 16600, device)
+    rel = b3_check(f"H={hidden}", lut_dense_bwd_fused, x, args, g)   # raises past B3_REL
+    assert max(rel[n] for n in rel if n != "max_abs") <= B3_REL
+    assert b3_graph_replay(lut_dense_bwd_fused, x, args, g)
+    assert len(device_kernels(lambda: lut_dense_bwd_fused(x, *args, g))) == 1
 
 
 def test_b3_is_one_device_kernel(device):
@@ -331,4 +422,25 @@ def test_fused_train_step_on_card_matches_plain(device, monkeypatch):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"fake_quant": 2, "lut_dense": 1,
                                    "lut_dense_bwd": 1, "lut_serve": 0}
+    assert bool(torch.isfinite(m["loss"]))
+
+
+def test_fused_train_step_past_sixteen_hidden(device, monkeypatch):
+    """ROADMAP C10: a train step of a JSC-HLF stack at H = 24 runs B2 and B3
+    (both on their generic instantiations) and matches the plain step."""
+    import chip_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import make_lut_train_step
+
+    monkeypatch.setattr(chip_smoke, "JSC_BATCH", 2048)
+    monkeypatch.setattr(chip_smoke, "TRAIN_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "N_TRAIN", 8192)
+    layers, hp, data = chip_smoke.train_setup(device, hidden=24)
+    batch = chip_smoke.train_batch(data, 0)
+    chip_smoke.compare_step_to_plain(layers, hp, batch)     # raises on a mismatch
+    step_fn, init_fn = make_lut_train_step(layers, hp)
+    ops.reset_launch_counts()
+    _, m = step_fn(init_fn(), batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lut_dense"] == 1 and ops.launch_counts()["lut_dense_bwd"] == 1
     assert bool(torch.isfinite(m["loss"]))
