@@ -55,7 +55,21 @@ line:
    step counter on the card, and beta and lr from it against the CPU's, in
    ulps; a finite, falling loss; then the trained model evaluated, lowered (eval forward ==
    ``run_float`` exactly) and served through B4 behind the gate;
-9. seeded packed chains covering what JSC-HLF does not, kernel B4 against
+9. the chunked loop (``train/loop.py``) on the same train slice: the
+   per-step loop, ``run_chunked`` with eager chunks of 8 and with CUDA-graph
+   chunks of 8 and of 40 (a boundary at step 100, so k in {8, 4} and {40,
+   20}, batches built on the host by ``get_batch`` and staged by the
+   prefetcher) from one start, bit for bit equal in parameters, Adam state,
+   BN stats and every step's loss/CE/EBOPs, each chunk launching B1 x2, B2
+   and B3 once per step (a replay counting what its capture recorded); a
+   graph run saved by ``CheckpointStore`` at step 100 and stopped at 130,
+   restored into fresh layers and run 100-200, bit for bit equal to the
+   straight run; the graph-trained model lowered, gated and served through
+   B4; then the modes timed in three interleaved rounds (medians and
+   ranges of ms/step, host ms/step, steps/s, capture time and peak memory
+   per k) and profiled once each (device busy and idle share, device
+   kernels per step; a replayed step runs B1 twice, B2 and B3 once);
+10. seeded packed chains covering what JSC-HLF does not, kernel B4 against
    its plain version bit for bit in int32 and int64 compute: the synthetic
    chain (sum stages, non-identity gathers with the zero column, in-shifts,
    CMUL and WRAP epilogues, int8/int16/int32/int64 lanes), the wide chain
@@ -63,16 +77,17 @@ line:
    32 rows) and a 16->64->5 stack served through the gate, whose first
    stage's tables are read from global memory and second stage's staged in
    shared memory in one launch;
-10. the ``kernels`` JSON line, then the result line.
+11. the ``kernels`` JSON line, then the result line.
 
 ``python3 chip_smoke.py --b1-timing``, ``--b2-timing``, ``--b3-timing`` and
 ``--b4-timing`` print only kernel B1's, B2's, B3's or B4's timings (and B2's,
-B3's or B4's registers, B2's and B3's SASS, B4's launch plan), and no result
-line, to compare two trees in one call.
+B3's or B4's registers, B2's and B3's SASS, B4's launch plan), and
+``--loop-timing`` only the chunked loop's timings and profiles, with no
+result line, to compare two trees in one call.
 
-The launch counters are zeroed just before each path (phases 5-6 and phase
-8, after its step-1 comparison) and read just after it: each path must have
-launched each of its kernels.  Float32 matmuls and convolutions run without
+The launch counters are zeroed just before each path (phases 5-6, phase 8
+after its step-1 comparison, and phase 9 before its timings) and read just
+after it: each path must have launched each of its kernels.  Float32 matmuls and convolutions run without
 TF32.  Any failure exits non-zero with no result line; so does a machine
 without a CUDA device.
 """
@@ -1324,13 +1339,14 @@ def train_setup(device, hidden=HIDDEN):
     xte, yte = jsc_hlf(seed=SEED, n=JSC_BATCH, split="test")
     ctr = quantize_to_int(xtr, TRAIN_IN_F, TRAIN_IN_I, True, "SAT")
     cte = quantize_to_int(xte, TRAIN_IN_F, TRAIN_IN_I, True, "SAT")
-    data = {"x": torch.as_tensor(int_to_float(ctr, TRAIN_IN_F), dtype=torch.float32,
-                                 device=device),
+    x_host = int_to_float(ctr, TRAIN_IN_F).astype(np.float32)
+    data = {"x": torch.as_tensor(x_host, device=device),
             "y": torch.as_tensor(ytr, device=device),
             "x_test": int_to_float(cte, TRAIN_IN_F).astype(np.float32),
-            "codes_test": cte, "y_test": yte}
+            "codes_test": cte, "y_test": yte, "x_host": x_host, "y_host": ytr}
     idx = np.random.default_rng(SEED).integers(0, n_train, (steps, batch))
     data["idx"] = torch.as_tensor(idx, device=device)
+    data["idx_host"] = idx
     layers = build_lut_stack(list(JSC_DIMS), hidden, device=device,
                              generator=torch.Generator().manual_seed(SEED))
     hp = TrainHParams(adam=AdamConfig(lr=LR), beta=BetaSchedule(5e-7, 1e-4, steps),
@@ -1343,6 +1359,14 @@ def train_setup(device, hidden=HIDDEN):
 def train_batch(data, s):
     idx = data["idx"][s]
     return {"x": data["x"][idx], "y": data["y"][idx]}
+
+
+def host_batch(data, s):
+    """Step ``s``'s batch gathered on the host from the rows ``train_batch``
+    gathers on the card: the same values, as numpy (the chunked loop's
+    ``get_batch``)."""
+    idx = data["idx_host"][s]
+    return {"x": data["x_host"][idx], "y": data["y_host"][idx]}
 
 
 def cell_flips(layers_a, layers_b, x):
@@ -1441,10 +1465,7 @@ def phase_train_run(device, layers, hp, data, cpu_layers):
     """Part 2, the path itself: TRAIN_STEPS fused steps, then evaluate, lower
     and serve the trained model."""
     import torch
-    from repro_torch.core.lower import compile_sequential
     from repro_torch.kernels import ops
-    from repro_torch.kernels.lut_serve_cuda import run_chain_plain
-    from repro_torch.serve.api import EngineSpec, build
     from repro_torch.train.steps import make_lut_train_step, named_params
 
     step_fn, init_fn = make_lut_train_step(layers, hp)
@@ -1512,8 +1533,20 @@ def phase_train_run(device, layers, hp, data, cpu_layers):
           f"{np.mean(steady_host):.4f}; {TRAIN_STEPS / wall:.2f} steps/s over the "
           f"whole loop ({wall:.3f}s, first step {dev_ms[0]:.3f} ms)")
     print(f"[train] torch.profiler, steps {prof_lo + 1}-{prof_hi}: {profile}")
+    serve_trained(device, layers, data, "[train]")
+    return {"ms_step": float(np.mean(steady)), "host_ms_step": float(np.mean(steady_host)),
+            "steps_per_s": TRAIN_STEPS / wall}
 
-    # evaluate, lower, serve the trained model
+
+def serve_trained(device, layers, data, tag):
+    """Evaluate the trained stack, lower it (eval forward == run_float
+    exactly), build it behind the gate and serve the test rows through B4,
+    bit-exact against the plain chain and ``DaisProgram.run``."""
+    import torch
+    from repro_torch.core.lower import compile_sequential
+    from repro_torch.kernels.lut_serve_cuda import run_chain_plain
+    from repro_torch.serve.api import EngineSpec, build
+
     for layer in layers:
         layer.eval()
     x_test = torch.as_tensor(data["x_test"], device=device)
@@ -1539,41 +1572,368 @@ def phase_train_run(device, layers, hp, data, cpu_layers):
               "trained model: B4 != the plain chain")
         check(np.array_equal(out.cpu().numpy().astype(np.int64), prog.run(codes[lo:lo + 4096])),
               "trained model: served batch != DaisProgram.run")
-    print(f"[train] trained model: test accuracy {acc:.4f}; eval forward == "
+    print(f"{tag} trained model: test accuracy {acc:.4f}; eval forward == "
           f"DaisProgram.run_float exactly on {len(codes)} rows; {prog.n_instrs()} "
           f"instrs; gate PASSED on path {engine.path}; {len(codes)} test rows "
           f"served through B4 bit-exact vs the plain chain and DaisProgram.run")
-    return {"ms_step": float(np.mean(steady)), "host_ms_step": float(np.mean(steady_host)),
-            "steps_per_s": TRAIN_STEPS / wall}
 
 
-def trace_summary(prof, window_ms, n_steps):
-    """Device busy time of the profiled steps, from the chrome trace: the
-    share of the window the device ran kernels, the port's kernels' share,
-    and the kernels that took the most device time."""
+# the port's train kernels, by the names of their device kernels
+KERNEL_MARKS = {"fake_quant": ("fq_column_kernel", "fq_general_kernel"),
+                "lut_dense": ("lut_dense_forward_kernel",),
+                "lut_dense_bwd": ("lut_dense_bwd_",)}
+
+
+def kernel_counts(names) -> dict:
+    """Device kernels of each of B1-B3 among the kernel names ``names``."""
+    return {k: sum(any(m in n for m in marks) for n in names)
+            for k, marks in KERNEL_MARKS.items()}
+
+
+def trace_stats(prof, window_ms, n_steps, name="train_trace.json"):
+    """Device busy time of ``n_steps`` profiled steps from the chrome trace,
+    per step: busy ms, ms between the window's events, the idle share of the
+    window, device kernels (with copies and fills), B1-B3's ms and device
+    kernels, and the kernels that took the most device time; None when the
+    trace holds no device activity."""
     from repro_torch.kernels import build as kbuild
 
-    path = kbuild.BUILD_DIR / "train_trace.json"
+    path = kbuild.BUILD_DIR / name
     prof.export_chrome_trace(str(path))
     with open(path) as fh:
         trace = json.load(fh).get("traceEvents", [])
     kern = [e for e in trace if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
             and "dur" in e]
     if not kern:
-        return "no device kernels in the trace (device time not measured)"
+        return None
     by_name = {}
     for e in kern:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
     busy = sum(by_name.values())
-    mine = sum(v for k, v in by_name.items()
-               if any(t in k for t in ("fake_quant_kernel", "lut_dense_forward_kernel",
-                                       "lut_dense_bwd_")))
+    marks = sum(KERNEL_MARKS.values(), ())
+    mine = sum(v for k, v in by_name.items() if any(t in k for t in marks))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (f"device busy {busy / n_steps:.4f} ms/step of {window_ms / n_steps:.4f} "
-            f"ms/step between events (idle share {1 - busy / window_ms:.3f}); "
-            f"{len(kern) // n_steps} device kernels per step; B1-B3 "
-            f"{mine / n_steps:.4f} ms/step ({mine / busy:.3f} of busy); top: "
-            + "; ".join(f"{k[:60]} {v / n_steps:.4f} ms" for k, v in top))
+    counts = kernel_counts([e["name"] for e in kern if e.get("cat") == "kernel"])
+    return {"busy": busy / n_steps, "window": window_ms / n_steps,
+            "idle": 1 - busy / window_ms, "kernels": len(kern) / n_steps,
+            "port_ms": mine / n_steps, "port_share": mine / busy,
+            "counts": {k: v / n_steps for k, v in counts.items()},
+            "top": [(k, v / n_steps) for k, v in top]}
+
+
+def trace_summary(prof, window_ms, n_steps):
+    """``trace_stats`` as one line."""
+    st = trace_stats(prof, window_ms, n_steps)
+    if st is None:
+        return "no device kernels in the trace (device time not measured)"
+    return (f"device busy {st['busy']:.4f} ms/step of {st['window']:.4f} ms/step "
+            f"between events (idle share {st['idle']:.3f}); {st['kernels']:.0f} device "
+            f"kernels per step; B1-B3 {st['port_ms']:.4f} ms/step ({st['port_share']:.3f} "
+            f"of busy); top: " + "; ".join(f"{k[:60]} {v:.4f} ms" for k, v in st["top"]))
+
+
+# --------------------------------------------------------------------------- #
+# The chunked training loop (train/loop.py) on the train path: chunk_steps
+# of the chunked runs (the reference's default, and a longer chunk), the
+# boundary every run keeps (a checkpoint) and the step the crash run stops at
+# (not the end of a chunk)
+LOOP_CHUNKS = (8, 40)
+LOOP_BOUNDARY = 100
+LOOP_CRASH = 130
+LOOP_TIMING_RUNS = 3
+# kernel launches of one train step
+PER_STEP = {"fake_quant": 2, "lut_dense": 1, "lut_dense_bwd": 1, "lut_serve": 0}
+
+
+def state_bytes(layers, opt) -> dict:
+    """Every parameter, BN stat and Adam tensor of a stack, as bytes by the
+    reference's checkpoint path."""
+    from repro_torch import interop
+
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}/{k}")
+        else:
+            out[path] = np.asarray(tree).tobytes()
+
+    walk({"params": interop.stack_params_to_numpy(layers),
+          "opt": interop.opt_state_to_numpy(layers, opt)}, "")
+    return out
+
+
+def check_same_state(got, want, what):
+    diff = sorted(k for k in want if got.get(k) != want[k])
+    check(got.keys() == want.keys() and not diff,
+          f"loop: {what} differs from the per-step run in {diff[:6]}")
+
+
+def loop_per_step(hp, data, layers):
+    """TRAIN_STEPS steps one call each (the per-step loop of ``phase_train_run``):
+    ``(opt_state, metrics (steps, 3) of loss/CE/EBOPs, timings)``."""
+    import torch
+    from repro_torch.train.steps import make_lut_train_step
+
+    step_fn, init_fn = make_lut_train_step(layers, hp)
+    opt = init_fn()
+    rows, host_ms = [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    ev[0].record()
+    for s in range(TRAIN_STEPS):
+        batch = train_batch(data, s)
+        t0 = time.perf_counter()
+        opt, m = step_fn(opt, batch)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev[s + 1].record()
+        rows.append(torch.stack([m["loss"], m["ce"], m["ebops"]]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    dev = [ev[s].elapsed_time(ev[s + 1]) for s in range(TRAIN_STEPS)]
+    stats = {"events": ev[0].elapsed_time(ev[-1]) / TRAIN_STEPS,
+             "steady": float(np.mean(dev[10:])), "host": float(np.mean(host_ms[10:])),
+             "steps_s": TRAIN_STEPS / wall, "peak": {1: torch.cuda.max_memory_allocated()}}
+    return opt, torch.stack(rows).cpu().numpy(), stats
+
+
+def loop_chunked(hp, data, layers, mode, chunk_steps, start=0, stop=None,
+                 opt=None, on_chunk=None):
+    """Steps ``[start, stop)`` through ``run_chunked`` in ``mode`` with the
+    boundary ``LOOP_BOUNDARY``, batches from ``host_batch`` on the prefetch
+    thread; each chunk must launch B1 x2, B2 and B3 once per step (and once
+    more for a graph's warm-up step).  Returns the state, metrics, the chunks
+    ``(step, k, compiled)`` and timings: ms/step between CUDA events over the
+    run, steady ms/step and host (enqueue) ms/step over the chunks that did
+    not capture, steps/s over the run, the capture time (the capturing
+    chunk's time less k steady steps) and peak allocated bytes per k."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import run_chunked
+    from repro_torch.train.steps import make_lut_train_step, named_params
+
+    stop = TRAIN_STEPS if stop is None else stop
+    step_fn, init_fn = make_lut_train_step(layers, hp)
+    opt = init_fn() if opt is None else opt
+    chunks, rows, peaks = [], [], {}
+    last = {}
+
+    def keep(r):
+        now = ops.launch_counts()
+        warm = 1 if mode == "graph" and r.compiled else 0
+        want = {n: c * (r.k + warm) for n, c in PER_STEP.items()}
+        got = {n: now[n] - last[n] for n in now}
+        check(got == want, f"loop {mode}/{chunk_steps}: chunk ({r.step}, {r.k}) "
+              f"launched {got}, not {want}")
+        last.update(now)
+        if r.compiled:
+            peaks[r.k] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        chunks.append((r.step, r.k, r.compiled, r.dt_s, r.host_s))
+        rows.append(np.stack([r.metrics["loss"], r.metrics["ce"], r.metrics["ebops"]], 1))
+        if on_chunk is not None:
+            on_chunk(r)
+
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last.update(ops.launch_counts())
+    t_all = time.perf_counter()
+    e0.record()
+    _, opt, _ = run_chunked(step_fn, named_params(layers), opt, lambda s: host_batch(data, s),
+                            start, stop, chunk_steps=chunk_steps,
+                            boundaries=(LOOP_BOUNDARY,), mode=mode, on_chunk=keep)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    steady = [c for c in chunks if not c[2]]
+    n = sum(c[1] for c in steady) or float("nan")      # nan: every chunk captured
+    ms = 1e3 * sum(c[3] for c in steady) / n
+    stats = {"events": e0.elapsed_time(e1) / (stop - start), "steady": ms,
+             "host": 1e3 * sum(c[4] for c in steady) / n, "steps_s": (stop - start) / wall,
+             "capture_ms": {c[1]: 1e3 * c[3] - c[1] * ms for c in chunks if c[2]},
+             "peak": peaks}
+    return {"opt": opt, "hist": np.concatenate(rows), "chunks": [c[:3] for c in chunks],
+            "stats": stats}
+
+
+def phase_loop(device):
+    """The chunked loop on the train path: per step, eager chunks and graph
+    chunks from one start, bit for bit equal; a crash at an unaligned step
+    and a resume from a checkpoint, bit for bit equal to the straight run;
+    the graph-trained model lowered, gated and served through B4."""
+    import shutil
+
+    from repro_torch.ckpt.store import CheckpointStore
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.train.steps import make_lut_train_step
+
+    layers0, hp, data = train_setup(device)
+
+    def fresh():
+        return [copy.deepcopy(layer) for layer in layers0]
+
+    t0 = time.monotonic()
+    layers = fresh()
+    opt, hist, _ = loop_per_step(hp, data, layers)
+    want = state_bytes(layers, opt)
+    graph_layers = None
+    for mode, chunk in (("eager", LOOP_CHUNKS[0]), ("graph", LOOP_CHUNKS[0]),
+                        ("graph", LOOP_CHUNKS[1])):
+        layers = fresh()
+        out = loop_chunked(hp, data, layers, mode, chunk)
+        check_same_state(state_bytes(layers, out["opt"]), want, f"{mode} chunks of {chunk}")
+        check(out["hist"].tobytes() == hist.tobytes(),
+              f"loop: loss/CE/EBOPs of {mode} chunks of {chunk} differ from per-step")
+        ks = sorted({k for _, k, _ in out["chunks"]}, reverse=True)
+        print(f"[loop] {mode} chunks of {chunk} (k in {ks}, boundary {LOOP_BOUNDARY}, "
+              f"{len(out['chunks'])} chunks): params, Adam state, BN stats and the "
+              f"{TRAIN_STEPS} steps' loss/CE/EBOPs bit for bit equal to the per-step loop")
+        graph_layers = layers
+    # crash at an unaligned step, resume from the checkpoint at the boundary
+    ckpt = kbuild.BUILD_DIR / "loop_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    store = CheckpointStore(str(ckpt), keep=2)
+    layers = fresh()
+
+    def save(r):
+        if r.step + r.k == LOOP_BOUNDARY:
+            store.save(LOOP_BOUNDARY, layers, r.opt_state, extra={"seed": SEED}, blocking=True)
+
+    loop_chunked(hp, data, layers, "graph", LOOP_CHUNKS[1], stop=LOOP_CRASH, on_chunk=save)
+    check(store.list_steps() == [LOOP_BOUNDARY], f"loop: checkpoints {store.list_steps()}")
+    layers = fresh()
+    _, init_fn = make_lut_train_step(layers, hp)
+    layers, opt, manifest = store.restore(layers, init_fn())
+    check(manifest == {"step": LOOP_BOUNDARY, "seed": SEED}, f"loop: manifest {manifest}")
+    out = loop_chunked(hp, data, layers, "graph", LOOP_CHUNKS[1], start=LOOP_BOUNDARY, opt=opt)
+    check_same_state(state_bytes(layers, out["opt"]), want, "the resumed run")
+    check(out["hist"].tobytes() == hist[LOOP_BOUNDARY:].tobytes(),
+          "loop: loss/CE/EBOPs of the resumed run differ")
+    print(f"[loop] graph chunks of {LOOP_CHUNKS[1]}: stopped at step {LOOP_CRASH}, "
+          f"restored the checkpoint of step {LOOP_BOUNDARY} into fresh layers and Adam "
+          f"state, ran {LOOP_BOUNDARY}-{TRAIN_STEPS} (chunks {out['chunks']}): bit for bit "
+          f"equal to the straight run ({time.monotonic() - t0:.1f}s for the phase so far)")
+    serve_trained(device, graph_layers, data, "[loop]")
+
+
+def profile_window(fn, n_steps, name):
+    """``trace_stats`` of one call of ``fn`` (``n_steps`` train steps) under
+    torch.profiler, CUDA events around it, and the launch counts it added;
+    a profile that records no device kernel is taken again (PERF.md §7)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(PROFILE_TRIES):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        with torch.profiler.profile(activities=activities) as prof:
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+        after = ops.launch_counts()
+        st = trace_stats(prof, e0.elapsed_time(e1), n_steps, name)
+        if st is not None:
+            st["launches"] = {k: (after[k] - before[k]) / n_steps for k in KERNEL_MARKS}
+            return st
+    raise SmokeError(f"{name}: no device kernel in {PROFILE_TRIES} profiles")
+
+
+def loop_profiles(device, hp, data, layers0):
+    """Profiles of the three modes on copies of the start: 5 per-step steps,
+    one eager chunk of 8, one graph replay of 8 and of 40 (after the chunk
+    that captured it).  Each replayed step must run B1 twice, B2 and B3 once
+    on the device, as many as the launch counters add."""
+    import torch
+    from repro_torch.data.pipeline import stack_batches
+    from repro_torch.train.loop import make_chunked_step
+    from repro_torch.train.steps import make_lut_train_step
+
+    out = {}
+    step_fn, init_fn = make_lut_train_step([copy.deepcopy(l) for l in layers0], hp)
+    opt = init_fn()
+    for s in range(3):
+        opt, _ = step_fn(opt, train_batch(data, s))
+
+    def steps():
+        nonlocal opt
+        for s in range(3, 8):
+            opt, _ = step_fn(opt, train_batch(data, s))
+
+    out[("step", None)] = profile_window(steps, 5, "loop_step.json")
+    for mode, k in (("eager", LOOP_CHUNKS[0]), ("graph", LOOP_CHUNKS[0]),
+                    ("graph", LOOP_CHUNKS[1])):
+        step_fn, init_fn = make_lut_train_step([copy.deepcopy(l) for l in layers0], hp)
+        chunk_fn = make_chunked_step(step_fn, mode=mode, device=device)
+        batches = {n: torch.as_tensor(a, device=device)
+                   for n, a in stack_batches(lambda s: host_batch(data, s), 0, k).items()}
+        state = {"opt": init_fn()}
+
+        def call():
+            state["opt"], _ = chunk_fn(state["opt"], batches)
+
+        call()                                   # eager: warm; graph: capture + replay
+        st = profile_window(call, k, f"loop_{mode}_{k}.json")
+        if mode == "graph":
+            want = {n: float(c) for n, c in PER_STEP.items() if n in KERNEL_MARKS}
+            check(st["counts"] == want and st["launches"] == want,
+                  f"loop: a replayed step of {k} ran {st['counts']} device kernels and "
+                  f"counted {st['launches']} launches, not {want}")
+        out[(mode, k)] = st
+    return out
+
+
+def loop_timings(device, tag=""):
+    """The modes timed in ``LOOP_TIMING_RUNS`` interleaved rounds (per step,
+    eager chunks of 8, graph chunks of 8 and of 40, each from the same start),
+    printed as medians and ranges, then one profile of each."""
+    layers0, hp, data = train_setup(device)
+    modes = (("step", None), ("eager", LOOP_CHUNKS[0]), ("graph", LOOP_CHUNKS[0]),
+             ("graph", LOOP_CHUNKS[1]))
+    got = {m: [] for m in modes}
+    for _ in range(LOOP_TIMING_RUNS):
+        for mode, chunk in modes:
+            layers = [copy.deepcopy(l) for l in layers0]
+            got[(mode, chunk)].append(
+                loop_per_step(hp, data, layers)[2] if mode == "step"
+                else loop_chunked(hp, data, layers, mode, chunk)["stats"])
+    prof = loop_profiles(device, hp, data, layers0)
+
+    def spread(vals, fmt="{:.4f}"):
+        return (fmt.format(float(np.median(vals))) + " [" + fmt.format(min(vals)) + ", "
+                + fmt.format(max(vals)) + "]")
+
+    summary = {}
+    for m in modes:
+        runs, st = got[m], prof[m]
+        name = "per step" if m[0] == "step" else f"{m[0]} chunks of {m[1]}"
+        steady = float(np.median([r["steady"] for r in runs]))
+        idle = 1 - st["busy"] / steady
+        peaks = {k: [r["peak"][k] / 2**20 for r in runs] for k in runs[0]["peak"]}
+        line = (f"[loop{tag}] {name}, {LOOP_TIMING_RUNS} runs of {TRAIN_STEPS} steps at "
+                f"B={JSC_BATCH}, median [min, max]: ms/step between CUDA events "
+                f"{spread([r['events'] for r in runs])}; steady ms/step "
+                f"{spread([r['steady'] for r in runs])}; host ms/step (enqueue) "
+                f"{spread([r['host'] for r in runs])}; steps/s over the loop "
+                f"{spread([r['steps_s'] for r in runs], '{:.2f}')}; profile: device busy "
+                f"{st['busy']:.4f} ms/step, idle share {idle:.3f} of the steady step "
+                f"({st['idle']:.3f} of the profiled window), {st['kernels']:.1f} device "
+                f"kernels/step, B1/B2/B3 device kernels/step {st['counts']}, B1-B3 "
+                f"{st['port_ms']:.4f} ms/step; peak MiB allocated per k "
+                + ", ".join(f"{k}: {spread(v, '{:.1f}')}" for k, v in peaks.items()))
+        if m[0] == "graph":
+            caps = {k: [r["capture_ms"][k] for r in runs] for k in runs[0]["capture_ms"]}
+            line += "; capture ms per k (warm-up step included) " + ", ".join(
+                f"{k}: {spread(v, '{:.1f}')}" for k, v in caps.items())
+        print(line)
+        summary[name] = {"steady": steady, "idle": idle}
+    return summary
 
 
 def synthetic_chain(rng, dtype):
@@ -1809,6 +2169,17 @@ def main_b4_timing() -> int:
     return 0
 
 
+def main_loop_timing() -> int:
+    """``--loop-timing``: only the chunked loop's timings and profiles (the
+    same harness for two trees, run from each tree's root); prints no result
+    line."""
+    import torch
+
+    phase_device()
+    loop_timings(torch.device("cuda:0"), tag=f" {os.path.basename(REPO)}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1826,12 +2197,15 @@ def main() -> int:
     # reference precision: no float32 matmul or convolution rounds via TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--loop-timing"]:
+        return main_loop_timing()
     from repro_torch.kernels import ops
 
     device = torch.device("cuda:0")
     report = {}
     paths = {"serve": ("lut_dense", "lut_serve"),
-             "train": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve")}
+             "train": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
+             "loop": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve")}
     launches = {}
     try:
         phase_device()
@@ -1851,6 +2225,10 @@ def main() -> int:
         ops.reset_launch_counts()                      # path 2: train, then serve
         train = phase_train_run(device, *train_state)
         launches["train"] = ops.launch_counts()
+        ops.reset_launch_counts()                      # path 3: the chunked loop
+        phase_loop(device)
+        launches["loop"] = ops.launch_counts()
+        loop = loop_timings(device)
         for path, names in paths.items():
             check(all(launches[path][n] > 0 for n in names),
                   f"the {path} path skipped a kernel: launches {launches[path]}")
@@ -1875,6 +2253,8 @@ def main() -> int:
     print(f"[train] summary: {train['ms_step']:.4f} device ms/step, "
           f"{train['host_ms_step']:.4f} host ms/step, {train['steps_per_s']:.2f} "
           f"steps/s at B={JSC_BATCH}")
+    print("[loop] summary, steady ms/step (device idle share): " + "; ".join(
+        f"{name} {v['steady']:.4f} ({v['idle']:.3f})" for name, v in loop.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

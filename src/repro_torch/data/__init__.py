@@ -1,1 +1,2 @@
-"""Deterministic data generators of the port (``synthetic.py``)."""
+"""Deterministic data generators (``synthetic.py``) and the host→device input
+pipeline of the chunked loop (``pipeline.py``)."""

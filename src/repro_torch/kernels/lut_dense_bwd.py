@@ -13,7 +13,7 @@ version is :func:`repro_torch.kernels.ref.lut_dense_bwd_ref`.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -27,6 +27,9 @@ _LIB = None
 _BLOCKS_PER_SM: Dict[Tuple[int, int], int] = {}   # (device, hidden) -> occupancy
 _PLANS: Dict[tuple, "LaunchPlan"] = {}             # (device, B, C_in, H, C_out) -> plan
 _WORKSPACE: Dict[int, tuple] = {}                  # device -> (tickets, partials)
+# every scratch pair a larger one replaced: a captured CUDA graph keeps the
+# pointers it was captured with, so no scratch is ever freed
+_RETIRED: List[tuple] = []
 
 
 class LaunchPlan(NamedTuple):
@@ -133,9 +136,13 @@ def _plan(lib, device, batch, c_in, hidden, c_out) -> LaunchPlan:
 def _workspace(device, plan: LaunchPlan) -> Tuple[int, int]:
     """Pointers to the kernel's scratch on ``device``: the zeroed tickets
     (which the kernel leaves zeroed) and room for the partial sums, grown
-    as a call needs, kept across calls."""
+    as a call needs, kept across calls.  A scratch that is outgrown stays
+    allocated (``_RETIRED``): a CUDA graph that captured a launch goes on
+    using it in every replay."""
     ws = _WORKSPACE.get(device.index)
     if ws is None or ws[0].numel() < plan.n_tickets or ws[1].numel() < plan.n_partial:
+        if ws is not None:
+            _RETIRED.append(ws)
         n_t = max(plan.n_tickets, 64, ws[0].numel() if ws else 0)
         n_p = max(plan.n_partial, ws[1].numel() if ws else 0)
         ws = (torch.zeros(n_t, dtype=torch.int32, device=device),

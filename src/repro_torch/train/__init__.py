@@ -1,1 +1,1 @@
-"""Train steps of the port (``steps.py``)."""
+"""Train steps (``steps.py``) and the chunked training loop (``loop.py``)."""

@@ -71,24 +71,27 @@ def make_lut_train_step(layers: Sequence[torch.nn.Module],
     the layers' current parameters (the layers are built, and seeded, by the
     caller); ``step_fn(opt_state, batch)`` with ``batch = {"x", "y"}``
     updates the layers in place and returns ``(opt_state, metrics)``, the
-    metrics as tensors (nothing waits for the device).  With
+    metrics as tensors (nothing waits for the device).  With ``commit=False``
+    the step runs whole and writes nothing back: the chunked loop's warm-up
+    before a CUDA-graph capture (``train/loop.py``).  With
     ``hp.lut_use_fused`` every layer trains on the fused path; the layers'
     own ``use_fused`` (their eval path) is left as it is.  The layers stay
     in train mode after a step.
     """
 
-    def step_fn(opt_state, batch):
+    def step_fn(opt_state, batch, commit: bool = True):
         loss, ce, aux, grads = lut_loss_and_grads(layers, hp, opt_state["step"], batch)
         params = named_params(layers)
         new_p, opt_state, om = adam_update(
             {k: p.detach() for k, p in params.items()}, grads, opt_state,
             hp.adam, hp.lr_schedule)
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(new_p[k])
-            for path, val in aux.updates.items():       # BN moving stats
-                scope, key = path.split("/", 1)
-                getattr(layers[int(scope[1:])], key).copy_(val)
+        if commit:
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(new_p[k])
+                for path, val in aux.updates.items():       # BN moving stats
+                    scope, key = path.split("/", 1)
+                    getattr(layers[int(scope[1:])], key).copy_(val)
         metrics = {"loss": loss, "ce": ce, "ebops": aux.ebops.detach(), **om}
         return opt_state, metrics
 

@@ -444,3 +444,156 @@ def test_fused_train_step_past_sixteen_hidden(device, monkeypatch):
     torch.cuda.synchronize()
     assert ops.launch_counts()["lut_dense"] == 1 and ops.launch_counts()["lut_dense_bwd"] == 1
     assert bool(torch.isfinite(m["loss"]))
+
+
+# ------------------------------------------------- the chunked loop (ROADMAP A1)
+def _loop_setup(monkeypatch, device, steps=12):
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "JSC_BATCH", 2048)
+    monkeypatch.setattr(chip_smoke, "TRAIN_STEPS", steps)
+    monkeypatch.setattr(chip_smoke, "N_TRAIN", 8192)
+    layers, hp, data = chip_smoke.train_setup(device)
+    return chip_smoke, layers, hp, data
+
+
+def _copies(layers):
+    import copy
+
+    return [copy.deepcopy(layer) for layer in layers]
+
+
+def test_graph_chunks_equal_eager_chunks(device, monkeypatch):
+    """The chunked loop captured as CUDA graphs (k in {4, 2}, boundary 6)
+    gives the eager chunks' bits: params, Adam state, BN stats, metrics."""
+    from repro_torch.train.loop import run_chunked
+    from repro_torch.train.steps import make_lut_train_step, named_params
+
+    cs, layers0, hp, data = _loop_setup(monkeypatch, device)
+    out = {}
+    for mode in ("eager", "graph"):
+        layers = _copies(layers0)
+        step_fn, init_fn = make_lut_train_step(layers, hp)
+        seen = []
+        _, opt, m = run_chunked(step_fn, named_params(layers), init_fn(),
+                                lambda s: cs.host_batch(data, s), 0, 12, chunk_steps=4,
+                                boundaries=(6,), mode=mode,
+                                on_chunk=lambda r: seen.append((r.step, r.k, r.compiled)))
+        assert seen == [(0, 4, True), (4, 2, True), (6, 4, False), (10, 2, False)]
+        out[mode] = (cs.state_bytes(layers, opt), {k: v.tobytes() for k, v in m.items()})
+    assert out["graph"] == out["eager"]
+
+
+def test_b3_scratch_outgrown_after_capture_keeps_replays_exact(device, monkeypatch):
+    """ROADMAP C11: a graph captured with B3's scratch, then a B3 call at
+    H = 32 that outgrows it, then replays: the old scratch must still be
+    there (the replay's tickets and partial sums), so replays equal eager."""
+    import torch
+    from repro_torch.core.lut_layers import LUTDense
+    from repro_torch.data.pipeline import stack_batches
+    from repro_torch.kernels import lut_dense_bwd
+    from repro_torch.train.loop import make_chunked_step
+    from repro_torch.train.steps import make_lut_train_step
+
+    cs, layers0, hp, data = _loop_setup(monkeypatch, device)
+    monkeypatch.setattr(lut_dense_bwd, "_WORKSPACE", {})   # sized by the capture below
+    la, lb = _copies(layers0), _copies(layers0)
+    sa, ia = make_lut_train_step(la, hp)
+    sb, ib = make_lut_train_step(lb, hp)
+    graph = make_chunked_step(sa, mode="graph", device=device)
+    eager = make_chunked_step(sb, mode="eager", device=device)
+
+    def chunk(step):
+        return {n: torch.as_tensor(a, device=device)
+                for n, a in stack_batches(lambda s: cs.host_batch(data, s), step, 3).items()}
+
+    oa, ob = ia(), ib()
+    oa, _ = graph(oa, chunk(0))                     # captures, then replays
+    ob, _ = eager(ob, chunk(0))
+    retired = len(lut_dense_bwd._RETIRED)
+    big = LUTDense(20, 5, hidden=32, device=device, generator=torch.Generator().manual_seed(3))
+    x, args, g = cs.b3_args(big, np.random.default_rng(3), 16600, device)
+    lut_dense_bwd.lut_dense_bwd_fused(x, *args, g)  # outgrows the scratch
+    assert len(lut_dense_bwd._RETIRED) == retired + 1
+    # take whatever memory a freed scratch would have left, on the stream that
+    # allocated it (the capture's warm-up stream) and on this one: nonzero
+    # tickets and poisoned sums
+    junk = []
+    for stream in (graph.stream, torch.cuda.current_stream(device)):
+        with torch.cuda.stream(stream):
+            junk += [torch.full((64 << i,), 7, dtype=torch.int32, device=device)
+                     for i in range(12)]
+    torch.cuda.synchronize()
+    for step in (3, 6):
+        oa, ma = graph(oa, chunk(step))
+        ob, mb = eager(ob, chunk(step))
+        torch.cuda.synchronize()
+        assert all(torch.equal(ma[k], mb[k]) for k in mb)
+    assert cs.state_bytes(la, oa) == cs.state_bytes(lb, ob)
+    assert all(bool((t == 7).all()) for t in junk)
+
+
+def test_graph_replay_launch_count_equals_profiled_kernels(device, monkeypatch):
+    """Launches counted for a replay (those recorded at capture, once per
+    replay) equal the device kernels a profile of the replay sees: B1 twice,
+    B2 and B3 once per step."""
+    import torch
+    from repro_torch.data.pipeline import stack_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import make_chunked_step
+    from repro_torch.train.steps import make_lut_train_step
+
+    cs, layers0, hp, data = _loop_setup(monkeypatch, device)
+    step_fn, init_fn = make_lut_train_step(_copies(layers0), hp)
+    chunk_fn = make_chunked_step(step_fn, mode="graph", device=device)
+    batches = {n: torch.as_tensor(a, device=device)
+               for n, a in stack_batches(lambda s: cs.host_batch(data, s), 0, 3).items()}
+    state = {"opt": init_fn()}
+
+    def call():
+        state["opt"], _ = chunk_fn(state["opt"], batches)
+
+    ops.reset_launch_counts()
+    call()
+    assert ops.launch_counts() == {"fake_quant": 8, "lut_dense": 4, "lut_dense_bwd": 4,
+                                   "lut_serve": 0}    # the warm-up step and one replay
+    ops.reset_launch_counts()
+    names = cs.device_kernels(call)
+    counted = ops.launch_counts()
+    assert cs.kernel_counts(names) == {"fake_quant": 6, "lut_dense": 3, "lut_dense_bwd": 3}
+    n_calls = counted["lut_dense"] // 3               # profiles taken (device_kernels retries)
+    assert counted == {"fake_quant": 6 * n_calls, "lut_dense": 3 * n_calls,
+                       "lut_dense_bwd": 3 * n_calls, "lut_serve": 0}
+
+
+@pytest.mark.parametrize("slow", ["copy", "get_batch"])
+def test_prefetcher_never_rewrites_a_pinned_buffer_in_flight(device, slow):
+    """Every chunk the prefetcher hands over equals the synchronous stack,
+    with each copy held back on the device behind a sleep while the worker
+    runs ahead (a buffer rewritten before its copy would corrupt a chunk),
+    and with a slow ``get_batch`` against a fast consumer."""
+    import time
+
+    import torch
+    from repro_torch.data.pipeline import HostPrefetcher, stack_batches
+
+    def get_batch(step):
+        if slow == "get_batch":
+            time.sleep(0.005)
+        rng = np.random.default_rng([7, step])
+        return {"x": rng.normal(size=(4096, 16)).astype(np.float32),
+                "y": np.full((4096,), step, np.int64)}
+
+    class SlowCopy(HostPrefetcher):
+        def _to_device(self, pinned):
+            if slow == "copy":
+                with torch.cuda.stream(self._copy_stream):
+                    torch.cuda._sleep(20_000_000)    # ~10 ms before the copies start
+            return super()._to_device(pinned)
+
+    segments = [(3 * i, 3) for i in range(12)]
+    with SlowCopy(get_batch, segments, depth=1, device=device) as pf:
+        for step, k, chunk in pf:
+            want = stack_batches(get_batch, step, k)
+            for n, a in want.items():
+                assert np.array_equal(chunk[n].cpu().numpy(), a), (step, n)

@@ -314,12 +314,9 @@ def test_lut_dense_train_forward(layer_idx, fused):
 
 
 # ----------------------------------------------------------- whole steps
-@pytest.mark.parametrize("n_steps", [1, 3])
-@pytest.mark.parametrize("fused", [False, True], ids=["einsum", "fused"])
-def test_train_steps_match_reference_einsum_step(fused, n_steps):
-    seed = 5
-    params = _ref_params(seed)
-    x, y = _batch(seed)
+def _hparams(fused, n_steps):
+    """The quickstart's Adam, cosine and β settings over ``n_steps``, for the
+    reference and the port."""
     beta_args = (5e-7, 1e-4, n_steps)
     sched_args = dict(first_period=max(n_steps // 2, 1), warmup=min(30, n_steps // 2))
     rhp = RefHParams(adam=ref_adam.AdamConfig(lr=LR), beta=ref_ebops.BetaSchedule(*beta_args),
@@ -328,6 +325,15 @@ def test_train_steps_match_reference_einsum_step(fused, n_steps):
                        beta=port_ebops.BetaSchedule(*beta_args),
                        lr_schedule=port_adam.cosine_restarts(LR, **sched_args),
                        lut_use_fused=fused)
+    return rhp, php
+
+
+def _walk_steps(params, rhp, php, batches):
+    """The reference's einsum step and the port's step side by side from
+    ``params``, one step per ``(x, y)`` of ``batches``, each step's gradients
+    and metrics checked.  Returns ``(rp, ro, layers, po, noisy, total_flips)``:
+    both packages' states after the last step, the elements whose gradient
+    was noise at some step, and the cell codes flipped on the way."""
     ref_step, _ = ref_make_step(_ref_layers(), rhp, donate=False)
     layers = _port_layers(params)
     step_fn, init_fn = make_lut_train_step(layers, php)
@@ -335,11 +341,11 @@ def test_train_steps_match_reference_einsum_step(fused, n_steps):
     rp = jax.tree_util.tree_map(jnp.asarray, params)
     ro = ref_adam.adam_init(rp)
     po = init_fn()
-    batch_r = {"x": jnp.asarray(x), "y": jnp.asarray(y)}
-    batch_p = {"x": torch.as_tensor(x), "y": torch.as_tensor(y)}
     noisy = {}
     total_flips = 0
-    for s in range(n_steps):
+    for s, (x, y) in enumerate(batches):
+        batch_r = {"x": jnp.asarray(x), "y": jnp.asarray(y)}
+        batch_p = {"x": torch.as_tensor(x), "y": torch.as_tensor(y)}
         rnp = jax.tree_util.tree_map(np.asarray, rp)
         n_flips = _n_flips(rnp, layers, x)
         total_flips += n_flips
@@ -358,12 +364,23 @@ def test_train_steps_match_reference_einsum_step(fused, n_steps):
         po, pm = step_fn(po, batch_p)
         for k, v in (("loss", loss), ("ce", ce), ("ebops", ebops)):
             assert float(rm[k]) == pytest.approx(v, rel=1e-6)
-        assert float(pm["loss"]) == pytest.approx(float(rm["loss"]), rel=1e-5, abs=1e-6)
-        assert float(pm["ce"]) == pytest.approx(float(rm["ce"]), rel=1e-5, abs=1e-6)
-        assert float(pm["ebops"]) == pytest.approx(float(rm["ebops"]), rel=1e-6)
-        assert float(pm["lr"]) == pytest.approx(float(rm["lr"]), rel=1e-6)
-        assert float(pm["grad_norm"]) == pytest.approx(float(rm["grad_norm"]),
-                                                       rel=1e-3 if n_flips else 1e-4)
+        _check_metrics(pm, rm, n_flips)
+    return rp, ro, layers, po, noisy, total_flips
+
+
+def _check_metrics(pm, rm, n_flips):
+    """One step's metrics of the port against the reference's."""
+    assert float(pm["loss"]) == pytest.approx(float(rm["loss"]), rel=1e-5, abs=1e-6)
+    assert float(pm["ce"]) == pytest.approx(float(rm["ce"]), rel=1e-5, abs=1e-6)
+    assert float(pm["ebops"]) == pytest.approx(float(rm["ebops"]), rel=1e-6)
+    assert float(pm["lr"]) == pytest.approx(float(rm["lr"]), rel=1e-6)
+    assert float(pm["grad_norm"]) == pytest.approx(float(rm["grad_norm"]),
+                                                   rel=1e-3 if n_flips else 1e-4)
+
+
+def _check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps):
+    """The port's parameters, Adam moments and BN stats after ``n_steps``
+    against the reference's, within the module's tolerances."""
     assert int(po["step"]) == int(ro["step"]) == n_steps
     got = interop.stack_params_to_numpy(layers)
     want = jax.tree_util.tree_map(np.asarray, rp)
@@ -396,6 +413,18 @@ def test_train_steps_match_reference_einsum_step(fused, n_steps):
     print(f"noisy elements after {n_steps} step(s): {n_noisy} of {n_total}")
     assert n_noisy <= NOISY_FRAC_PER_STEP * n_steps * n_total, (f"{n_noisy} of {n_total} elements noisy: "
                                        f"{ {k: int(v.sum()) for k, v in noisy.items()} }")
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+@pytest.mark.parametrize("fused", [False, True], ids=["einsum", "fused"])
+def test_train_steps_match_reference_einsum_step(fused, n_steps):
+    seed = 5
+    params = _ref_params(seed)
+    rhp, php = _hparams(fused, n_steps)
+    x, y = _batch(seed)
+    rp, ro, layers, po, noisy, total_flips = _walk_steps(params, rhp, php,
+                                                         [(x, y)] * n_steps)
+    _check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps)
 
 
 # ------------------------------------------------------------------ interop
