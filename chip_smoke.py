@@ -69,7 +69,22 @@ line:
    ranges of ms/step, host ms/step, steps/s, capture time and peak memory
    per k) and profiled once each (device busy and idle share, device
    kernels per step; a replayed step runs B1 twice, B2 and B3 once);
-10. seeded packed chains covering what JSC-HLF does not, kernel B4 against
+10. the PID hybrid (``models/pid.py``, ``examples/pid_hybrid.py``) at its
+   own widths (HGQ conv front 20 -> 8, LUT-Conv 8 -> 8 and 8 -> 4 kernel 3
+   SAME, LUT head 4 -> 1, hidden 8) on ``cepc_waveform``'s own 3000-sample
+   waveforms: step 1 held against the same step through the plain versions
+   (CPU); ``PID_STEPS`` steps of the example's settings (B = 128, Adam 2e-3
+   with cosine restarts, fixed beta 1e-7), each launching B1 eight times, a
+   finite and falling MSE, one profile window; test separation power beside
+   the truth-count reference; then the trained hybrid lowered at contexts of
+   100 and 3000 samples (the eval forward with the front's bias on the
+   program's grid equal to ``run_float``), gated
+   and served through B4 (B = 1024 and 16600 at 100, 1024 at 3000), every
+   batch equal to the plain chain in one launch; off the path: B1 at the
+   pid shapes bit for bit and timed, one step with the LUT layers on the
+   fused pair (B2, B3) against the plain step, B4 on the pid chains with a
+   graph replay and timed beside its bound;
+11. seeded packed chains covering what JSC-HLF does not, kernel B4 against
    its plain version bit for bit in int32 and int64 compute: the synthetic
    chain (sum stages, non-identity gathers with the zero column, in-shifts,
    CMUL and WRAP epilogues, int8/int16/int32/int64 lanes), the wide chain
@@ -77,7 +92,7 @@ line:
    32 rows) and a 16->64->5 stack served through the gate, whose first
    stage's tables are read from global memory and second stage's staged in
    shared memory in one launch;
-11. the ``kernels`` JSON line, then the result line.
+12. the ``kernels`` JSON line, then the result line.
 
 ``python3 chip_smoke.py --b1-timing``, ``--b2-timing``, ``--b3-timing`` and
 ``--b4-timing`` print only kernel B1's, B2's, B3's or B4's timings (and B2's,
@@ -86,8 +101,9 @@ B3's or B4's registers, B2's and B3's SASS, B4's launch plan), and
 result line, to compare two trees in one call.
 
 The launch counters are zeroed just before each path (phases 5-6, phase 8
-after its step-1 comparison, and phase 9 before its timings) and read just
-after it: each path must have launched each of its kernels.  Float32 matmuls and convolutions run without
+after its step-1 comparison, phase 9 before its timings, and phase 10 after
+its step-1 comparison and before its off-path checks) and read just after
+it: each path must have launched each of its kernels.  Float32 matmuls and convolutions run without
 TF32.  Any failure exits non-zero with no result line; so does a machine
 without a CUDA device.
 """
@@ -97,6 +113,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -332,35 +349,40 @@ def b1_check_cases(device):
     """Every case of ``b1_cases`` through ``core.quant._fq_forward`` (the
     forward of ``FakeQuant``) against the plain version, bit for bit; one B1
     launch each."""
+    for case in b1_cases(np.random.default_rng(SEED + 4), device):
+        b1_check(*case)
+
+
+def b1_check(label, x, f, i, signed, overflow):
+    """One B1 case through ``core.quant._fq_forward`` against the plain
+    version, bit for bit, in one launch."""
     import torch
     from repro_torch.core.quant import _fq_forward
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import fake_quant_ref
 
-    cases = b1_cases(np.random.default_rng(SEED + 4), device)
-    for label, x, f, i, signed, overflow in cases:
-        before = ops.launch_counts()["fake_quant"]
-        got = _fq_forward(x, f, i, signed, overflow)
-        torch.cuda.synchronize()
-        check(ops.launch_counts()["fake_quant"] == before + 1,
-              f"B1 {label}: not one launch")
-        want = fake_quant_ref(x, f, i, signed, overflow)
-        bad = got.view(torch.int32) != want.view(torch.int32)
-        n_bits = int(bad.sum())
-        if n_bits:
-            at = bad.nonzero()[:6].tolist()
-            fb, ib = (torch.broadcast_to(w, x.shape) for w in (f, i))
-            for k in at:
-                k = tuple(k)
-                print(f"[B1] {label} differs at {k}: x {float(x[k])!r}, f "
-                      f"{float(fb[k])}, i {float(ib[k])}: kernel "
-                      f"{int(got.view(torch.int32)[k]):#010x}, plain "
-                      f"{int(want.view(torch.int32)[k]):#010x}")
-        check(got.shape == x.shape and got.is_contiguous() and n_bits == 0,
-              f"B1 {label}: {n_bits} bit patterns differ from the plain version")
-        print(f"[B1] {label}: x {tuple(x.shape)} strides {x.stride()}, widths "
-              f"{tuple(f.shape)}, {'signed' if signed else 'unsigned'} {overflow}: "
-              f"identical to the plain version, bit for bit ({x.numel()} values)")
+    before = ops.launch_counts()["fake_quant"]
+    got = _fq_forward(x, f, i, signed, overflow)
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["fake_quant"] == before + 1,
+          f"B1 {label}: not one launch")
+    want = fake_quant_ref(x, f, i, signed, overflow)
+    bad = got.view(torch.int32) != want.view(torch.int32)
+    n_bits = int(bad.sum())
+    if n_bits:
+        at = bad.nonzero()[:6].tolist()
+        fb, ib = (torch.broadcast_to(w, x.shape) for w in (f, i))
+        for k in at:
+            k = tuple(k)
+            print(f"[B1] {label} differs at {k}: x {float(x[k])!r}, f "
+                  f"{float(fb[k])}, i {float(ib[k])}: kernel "
+                  f"{int(got.view(torch.int32)[k]):#010x}, plain "
+                  f"{int(want.view(torch.int32)[k]):#010x}")
+    check(got.shape == x.shape and got.is_contiguous() and n_bits == 0,
+          f"B1 {label}: {n_bits} bit patterns differ from the plain version")
+    print(f"[B1] {label}: x {tuple(x.shape)} strides {x.stride()}, widths "
+          f"{tuple(f.shape)}, {'signed' if signed else 'unsigned'} {overflow}: "
+          f"identical to the plain version, bit for bit ({x.numel()} values)")
 
 
 def cuda_ms_cold(fn, pool, iters: int = 24) -> float:
@@ -825,12 +847,12 @@ PROFILE_TRIES = 5
 
 def device_kernels(fn) -> list:
     """Names of the device kernels one call of ``fn`` runs: the "kernel"
-    events of a torch.profiler trace of CPU and CUDA activity.  A profile of
-    CUDA activity alone has been seen on the H100 to record no device event,
-    several profiles in a row, for a call that launched its kernel (PERF.md
-    section 7), so this reads the exported trace, as ``trace_summary`` does,
-    and a profile that records none is taken again, up to
-    ``PROFILE_TRIES`` of them."""
+    events of a torch.profiler trace of CPU and CUDA activity.  A profile has
+    been seen on the H100 to record no device event, several in a row, for a
+    call that launched its kernel (PERF.md section 7), so this reads the
+    exported trace, as ``trace_summary`` does, takes a profile that records
+    none again, up to ``PROFILE_TRIES`` of them, and then counts the kernel
+    nodes of the call captured in a CUDA graph (``graph_kernels``)."""
     import torch
     from repro_torch.kernels import build as kbuild
 
@@ -843,11 +865,41 @@ def device_kernels(fn) -> list:
             torch.cuda.synchronize()
         prof.export_chrome_trace(str(path))
         with open(path) as fh:
-            names = [e["name"] for e in json.load(fh).get("traceEvents", [])
-                     if e.get("cat") == "kernel"]
+            events = json.load(fh).get("traceEvents", [])
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
         if names:
-            break
+            return names
+        cats = {}
+        for e in events:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        print(f"[profile] no kernel event in a profile; events by category {cats}",
+              file=sys.stderr)
+    names = graph_kernels(fn)
+    print(f"[profile] {PROFILE_TRIES} profiles recorded no kernel; the call captured "
+          f"in a CUDA graph holds {len(names)} kernel nodes", file=sys.stderr)
     return names
+
+
+def graph_kernels(fn) -> list:
+    """Mangled names of the kernel nodes of one call of ``fn`` captured in a
+    CUDA graph, read from the graph's DOT dump (``cudaGraphDebugDotPrint``)."""
+    import torch
+    from repro_torch.kernels import build as kbuild
+
+    path = kbuild.BUILD_DIR / "device_kernels.dot"
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.debug_dump(str(path))
+    with open(path) as fh:
+        return dot_kernel_names(fh.read())
+
+
+def dot_kernel_names(dot: str) -> list:
+    """The kernel nodes' names in a verbose CUDA graph DOT dump."""
+    return re.findall(r"\{KERNEL\s*\|\s*\{ID\s*\|[^|]*\|\s*([^\s\\<}]+)", dot)
 
 
 def ptxas_usage(name: str, kernel) -> str:
@@ -1936,6 +1988,423 @@ def loop_timings(device, tag=""):
     return summary
 
 
+# --------------------------------------------------------------------------- #
+# The PID hybrid (models/pid.py): examples/pid_hybrid.py's non-smoke settings
+# at cepc_waveform's own 3000-sample length (150 windows), the widths of
+# repro/models/pid.py (WINDOW 20, 8 features, LUT-Conv 8->8 and 8->4, kernel 3
+# SAME, head 4->1, hidden 8); served over contexts of 100 and 3000 samples
+PID_WF_LEN = 3000
+PID_N_TRAIN, PID_N_TEST, PID_N_SERVE = 1200, 400, 1024
+PID_BATCH = 128
+PID_STEPS = 500
+PID_SERVE = {100: (1024, 16600), 3000: (1024,)}
+PID_N_BATCHES = 3
+# a pid step on the example's path: B1 for the front's two quantizers and
+# each LUT layer's two (the LUT layers on the einsum path, as the reference's)
+PID_PER_STEP = {"fake_quant": 8, "lut_dense": 0, "lut_dense_bwd": 0, "lut_serve": 0}
+# the same step with the LUT layers on the fused pair (B2 forward, B3 backward)
+PID_FUSED_STEP = {"fake_quant": 2, "lut_dense": 3, "lut_dense_bwd": 3, "lut_serve": 0}
+PID_PROFILE_STEPS = (200, 205)
+
+
+def pid_setup(device):
+    """The pid train slice: layers from seed 0 and the ADC-quantized train,
+    test and serve waveforms with the per-step batch indices."""
+    import torch
+    from repro_torch.examples.pid_hybrid import adc_data
+    from repro_torch.models.pid import build_pid_layers
+
+    t0 = time.monotonic()
+    wf, cnt, _ = adc_data(SEED, PID_N_TRAIN, PID_WF_LEN, "train")
+    wf_te, cnt_te, sp_te = adc_data(SEED, PID_N_TEST, PID_WF_LEN, "test")
+    wf_sv, _, _ = adc_data(SEED, PID_N_SERVE, PID_WF_LEN, "val")
+    idx = np.random.default_rng(SEED).integers(0, PID_N_TRAIN, (PID_STEPS, PID_BATCH))
+    data = {"wf": torch.as_tensor(wf, device=device),
+            "cnt": torch.as_tensor(cnt, device=device),
+            "idx": torch.as_tensor(idx, device=device),
+            "wf_test": wf_te, "cnt_test": cnt_te, "sp_test": sp_te, "wf_serve": wf_sv}
+    layers = build_pid_layers(device=device, generator=torch.Generator().manual_seed(SEED))
+    print(f"[pid] data: {PID_N_TRAIN} train, {PID_N_TEST} test, {PID_N_SERVE} serve "
+          f"waveforms of {PID_WF_LEN} samples from cepc_waveform on the 12-bit ADC grid "
+          f"({time.monotonic() - t0:.1f}s)")
+    return layers, data
+
+
+def pid_batch(data, s):
+    idx = data["idx"][s]
+    return data["wf"][idx], data["cnt"][idx]
+
+
+def pid_cells(layers, wf):
+    """Train-mode SAT output codes of the hybrid's LUT cells, layer by layer
+    on the stack's own input (``wf`` on the layers' device)."""
+    import torch
+
+    front, *luts = layers
+    out = []
+    with torch.no_grad():
+        front.train(True)
+        h, _ = front(wf[..., None])
+        for layer in luts:
+            layer.train(True)
+            x = layer._patches(h) if hasattr(layer, "_patches") else h
+            yq, _ = getattr(layer, "dense", layer)._cells(x, True)
+            out.append(yq.cpu())
+            h = torch.sum(yq, dim=-2)
+    return out
+
+
+def compare_pid_step_to_plain(layers, wf, cnt, fused=None):
+    """One pid step's loss, MSE, EBOPs and gradients on the card against the
+    same step through the plain versions on the CPU.  Returns the CPU copy,
+    the cells whose code flips between the two, the worst gradient error
+    over its tolerance and the launches of the card's step."""
+    import torch
+    from repro_torch.examples.pid_hybrid import pid_loss_and_grads
+    from repro_torch.kernels import ops
+
+    cpu_layers = [copy.deepcopy(layer).to("cpu") for layer in layers]
+    n_flips = sum(int((a != b).sum()) for a, b in
+                  zip(pid_cells(layers, wf), pid_cells(cpu_layers, wf.cpu())))
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    loss, mse, eb, grads = pid_loss_and_grads(layers, wf, cnt, fused=fused)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    closs, cmse, ceb, cgrads = pid_loss_and_grads(cpu_layers, wf.cpu(), cnt.cpu(),
+                                                  fused=fused)
+    rows = cnt.numel()                      # MSE is a mean over waveform windows
+    for name, a, c in (("loss", loss, closs), ("mse", mse, cmse), ("ebops", eb, ceb)):
+        a, c = float(a), float(c)
+        check(abs(a - c) <= 1e-5 * abs(c) + 1e-6 + FLIP_GRAD / rows * n_flips,
+              f"pid step: {name} {a} on the card vs {c} plain")
+    worst = 0.0
+    for path, g in grads.items():
+        w = cgrads[path]
+        tol = GRAD_RTOL * float(w.abs().max()) + GRAD_ATOL + FLIP_GRAD / rows * n_flips
+        err = float((g.cpu() - w).abs().max())
+        worst = max(worst, err / tol)
+        check(err <= tol, f"pid step: gradient {path} off by {err} > {tol}")
+    return cpu_layers, n_flips, worst, {k: after[k] - before[k] for k in after}
+
+
+def phase_pid(device):
+    """Part 1 of the pid path: step 1 against the plain versions (its
+    launches are comparisons and are made before the path's window)."""
+    from repro_torch.examples.pid_hybrid import make_pid_train_step
+
+    layers, data = pid_setup(device)
+    t0 = time.monotonic()
+    wf, cnt = pid_batch(data, 0)
+    cpu_layers, n_flips, worst, got = compare_pid_step_to_plain(layers, wf, cnt)
+    check(got == PID_PER_STEP, f"pid step launched {got}, not {PID_PER_STEP}")
+    cpu_step, cpu_init = make_pid_train_step(cpu_layers, PID_STEPS)
+    cpu_step(cpu_init(), wf.cpu(), cnt.cpu())
+    print(f"[pid] step 1 at B={PID_BATCH} x {PID_WF_LEN} samples: loss, MSE, EBOPs and "
+          f"every gradient on the card agree with the plain versions (CPU) within "
+          f"tolerance (worst {worst:.3f} of it; {n_flips} cell codes flip between the "
+          f"two; {time.monotonic() - t0:.1f}s)")
+    return layers, data, cpu_layers
+
+
+def phase_pid_run(device, layers, data, cpu_layers):
+    """Part 2, the path itself: PID_STEPS steps, test separation, then lower
+    at each context of PID_SERVE, build behind the gate and serve request
+    batches through B4.  Returns the built chains for B4's timings."""
+    import torch
+    from repro_torch.examples.pid_hybrid import (eval_counts, make_pid_train_step,
+                                                 separation)
+    from repro_torch.kernels import ops
+    from repro_torch.models.pid import pid_named_params
+
+    step_fn, init_fn = make_pid_train_step(layers, PID_STEPS)
+    opt = init_fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(PID_STEPS)]
+    metrics, host_ms = [], []
+    prof_lo, prof_hi = PID_PROFILE_STEPS
+    lr0 = None
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for s in range(PID_STEPS):
+        if s == prof_lo:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        before = ops.launch_counts()
+        wf, cnt = pid_batch(data, s)
+        t0 = time.perf_counter()
+        events[s][0].record()
+        opt, m = step_fn(opt, wf, cnt)
+        events[s][1].record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if s == prof_hi - 1:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            window_ms = events[prof_lo][0].elapsed_time(events[s][1])
+            profile = trace_stats(prof, window_ms, prof_hi - prof_lo, "pid_trace.json")
+        after = ops.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == PID_PER_STEP, f"pid step {s + 1} launched {got}, not {PID_PER_STEP}")
+        metrics.append(torch.stack([m["loss"], m["mse"], m["ebops"]]))
+        if s == 0:
+            lr0 = float(m["lr"])
+            card = pid_named_params(layers)
+            n_far = 0
+            for path, p in pid_named_params(cpu_layers).items():
+                d = (card[path].detach().cpu() - p.detach()).abs()
+                check(float(d.max()) <= 2 * lr0 + 1e-6,
+                      f"pid step 1: {path} moved {float(d.max())} from plain")
+                n_far += int((d > 1e-3 * lr0).sum())
+            n_all = sum(p.numel() for p in card.values())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    hist = torch.stack(metrics).cpu().numpy()
+    check(bool(np.isfinite(hist).all()), "pid: a non-finite loss, MSE or EBOPs")
+    mse_first, mse_last = float(hist[:10, 1].mean()), float(hist[-10:, 1].mean())
+    check(mse_last < mse_first, f"pid: MSE did not fall ({mse_first} -> {mse_last})")
+    keep = [k for k in range(10, PID_STEPS) if not prof_lo <= k < prof_hi]
+    steady, steady_host = [dev_ms[k] for k in keep], [host_ms[k] for k in keep]
+    print(f"[pid] {PID_STEPS} steps at B={PID_BATCH} x {PID_WF_LEN} samples, each "
+          f"launching B1 x8 (LUT layers on the einsum path, as the reference's); step 1 "
+          f"params within 2*lr of plain ({n_far} of {n_all} elements beyond 1e-3*lr); "
+          f"mean MSE first 10 {mse_first:.4f} -> last 10 {mse_last:.4f}; EBOPs "
+          f"{hist[0, 2]:.0f} -> {hist[-1, 2]:.0f}")
+    print(f"[pid] ms/step between CUDA events (steps 11-{PID_STEPS} outside the profiled "
+          f"window) mean {np.mean(steady):.4f} median {np.median(steady):.4f}; host "
+          f"ms/step (enqueue) mean {np.mean(steady_host):.4f}; {PID_STEPS / wall:.2f} "
+          f"steps/s over the whole loop ({wall:.3f}s)")
+    if profile is None:
+        print("[pid] torch.profiler: no device kernels in the trace (device time not "
+              "measured)")
+    else:
+        print(f"[pid] torch.profiler, steps {prof_lo + 1}-{prof_hi}: device busy "
+              f"{profile['busy']:.4f} ms/step of {profile['window']:.4f} between events "
+              f"(idle share {profile['idle']:.3f}); {profile['kernels']:.0f} device kernels "
+              f"per step; B1 {profile['port_ms']:.4f} ms/step ({profile['port_share']:.3f} "
+              f"of busy), B1 device kernels/step {profile['counts']['fake_quant']:.0f}; "
+              f"top: " + "; ".join(f"{k[:60]} {v:.4f} ms" for k, v in profile["top"]))
+    t0 = time.monotonic()
+    pred = eval_counts(layers, data["wf_test"], device)
+    s_pred = separation(pred, data["sp_test"])
+    s_true = separation(data["cnt_test"], data["sp_test"])
+    resid = float(np.abs(pred.sum(1) - data["cnt_test"].sum(1)).mean())
+    print(f"[pid] test separation power {s_pred:.4f} (truth-count reference "
+          f"{s_true:.4f}; the reference example asks for more than half of it); mean "
+          f"|count error| per waveform {resid:.3f} ({time.monotonic() - t0:.1f}s)")
+    check(np.isfinite(s_pred), "pid: separation power is not finite")
+    check(s_pred > 0.5 * s_true, f"pid: separation power {s_pred:.4f} is not more than "
+          f"half the truth-count reference {s_true:.4f}")
+    served = {ctx: pid_serve(device, layers, data, ctx) for ctx in PID_SERVE}
+    return {"ms_step": float(np.mean(steady)), "host_ms_step": float(np.mean(steady_host)),
+            "steps_per_s": PID_STEPS / wall, "sep": s_pred, "sep_true": s_true,
+            "served": served}
+
+
+def pid_serve(device, layers, data, ctx):
+    """Lower the trained hybrid over ``ctx`` samples, hold its eval forward
+    to ``run_float`` (``bias_gap``: bit for bit with the front's bias on the
+    program's grid; with the float bias moved windows only next to lc1 input
+    ties, and the gap's distribution printed, ROADMAP C12), build it behind the gate
+    and serve ``PID_N_BATCHES`` request batches of each size of
+    ``PID_SERVE[ctx]`` through B4: the first of waveform contexts, the
+    others of random in-range codes, each equal to the plain chain bit for
+    bit in one B4 launch, the first also to ``DaisProgram.run``."""
+    import torch
+    from repro_torch.core.lower import lower
+    from repro_torch.core.quant import quantize_to_int
+    from repro_torch.examples.pid_hybrid import bias_gap
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_serve_cuda import run_chain_plain
+    from repro_torch.models.pid import IN_F, IN_I, build_pid_graph
+    from repro_torch.serve.api import EngineSpec, build
+
+    t0 = time.monotonic()
+    prog = lower(build_pid_graph(layers, n_samples=ctx))
+    t_lower = time.monotonic() - t0
+    wf_te = data["wf_test"][:, :ctx]
+    gap = bias_gap(layers, wf_te, prog.run_float(wf_te)[:, 0], device)
+    built = build(prog, EngineSpec(engine="pallas", require="pallas", verify="full",
+                                   n_random=1024, seed=SEED), device=device)
+    engine = built.engine
+    chain, packed = plain_chain(prog, engine, device)
+    kinds = "/".join(st.kind for st in packed.stages)
+    print(f"[pid] ctx={ctx}: lowered in {t_lower:.2f}s to {prog.n_instrs()} instrs "
+          f"{prog.count_ops()}; eval forward with the front's bias on the program's "
+          f"grid == run_float exactly on {len(wf_te)} test waveforms; with its float bias "
+          f"max|d| {gap['dq']:.4g} in {gap['n_dq']} of them (|d|: waveforms "
+          f"{gap['hist']}), each moved window next to one of {gap['tie_sites']} lc1 "
+          f"input ties in {gap['n_tie']} waveforms (C12); gate PASSED on "
+          f"{built.attestation['random']} random rows, path {engine.path}, "
+          f"{str(engine.dtype).replace('torch.', '')}, stages {kinds}, "
+          f"{packed.table_bytes()} table bytes (per stage "
+          f"{[0 if st.table is None else st.table.nbytes for st in packed.stages]}) "
+          f"(compile {built.timings['compile_s']:.2f}s, gate {built.timings['gate_s']:.2f}s)")
+    print(f"[pid] ctx={ctx}: B4 plan: {b4_plan_text(chain, PID_SERVE[ctx])}")
+    contexts = quantize_to_int(data["wf_serve"].reshape(-1, ctx), IN_F, IN_I, False, "SAT")
+    rng = np.random.default_rng(SEED + 20)
+    xs = {}
+    for b in PID_SERVE[ctx]:
+        times = []
+        for k in range(PID_N_BATCHES):
+            if k == 0:
+                codes = contexts[:b]
+                check(len(codes) == b, f"pid ctx={ctx}: {len(codes)} contexts for B={b}")
+                x = torch.as_tensor(codes, device=device).to(engine.dtype)
+            else:
+                x = b4_codes(prog, rng, b, engine.dtype, device)
+            torch.cuda.synchronize()
+            before = ops.launch_counts()["lut_serve"]
+            t1 = time.perf_counter()
+            out = engine.run(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            check(ops.launch_counts()["lut_serve"] == before + 1,
+                  f"pid ctx={ctx}: B4 did not launch exactly once for a batch")
+            check(out.shape == (b, 1) and torch.equal(out, run_chain_plain(chain, x)),
+                  f"pid ctx={ctx}: B4 != the plain chain at B={b}")
+            if k == 0:
+                check(np.array_equal(out.cpu().numpy().astype(np.int64), prog.run(codes)),
+                      f"pid ctx={ctx}: served batch != DaisProgram.run at B={b}")
+        xs[b] = x
+        print(f"[pid] ctx={ctx}: {PID_N_BATCHES} batches x {b} rows (the first of "
+              f"waveform contexts, also vs DaisProgram.run) bit-exact vs the plain "
+              f"chain, one B4 launch each; host batch times ms: "
+              + " ".join(f"{t:.3f}" for t in times))
+    return {"chain": chain, "packed": packed, "xs": xs, "n_instrs": prog.n_instrs()}
+
+
+def pid_b1_cases(rng, device):
+    """B1 at the pid path's calls: the front's per-channel SAT on the
+    patches (128, 150, 20) with widths (20,) and per-element SAT on its
+    weights (20, 8); the LUT-Convs' WRAP on the expand views of their
+    patches (128, 150, 24) -> (..., 24, 8) and (..., 24, 4) and SAT on the
+    cell outputs; widths with pruned cells."""
+    import torch
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    def widths(shape, f_lo, f_hi, i_lo, i_hi):
+        f = rng.integers(f_lo, f_hi, shape).astype(np.float32)
+        i = rng.integers(i_lo, i_hi, shape).astype(np.float32)
+        f.reshape(-1)[:2] = -8.0                  # pruned
+        return t(f), t(i)
+
+    sites = PID_WF_LEN // 20
+    cases = []
+    f, i = widths((20,), 3, 9, 1, 4)
+    cases.append(("pid front SAT, per channel", t(rng.normal(0, 2, (PID_BATCH, sites, 20))),
+                  f, i, True, "SAT"))
+    f, i = widths((20, 8), 3, 9, -1, 2)
+    cases.append(("pid front weights SAT, per element", t(rng.normal(0, 0.3, (20, 8))),
+                  f, i, True, "SAT"))
+    src = t(rng.normal(0, 3, (PID_BATCH, sites, 24)))
+    for c_out in (8, 4):
+        f, i = widths((24, c_out), 1, 7, 0, 5)
+        cases.append((f"pid LUT-Conv 24->{c_out} WRAP in (expand view)",
+                      src[..., None].expand(PID_BATCH, sites, 24, c_out), f, i, True, "WRAP"))
+        f, i = widths((24, c_out), 1, 7, 0, 4)
+        cases.append((f"pid LUT-Conv 24->{c_out} SAT out",
+                      t(rng.normal(0, 2, (PID_BATCH, sites, 24, c_out))), f, i, True, "SAT"))
+    return cases
+
+
+def phase_pid_b1(device, report):
+    """B1 at the pid shapes: bit for bit against its plain version, then
+    timed with a cold L2 beside its bounds and its plain version."""
+    import torch
+    from repro_torch.kernels.fake_quant import fake_quant_fused
+    from repro_torch.kernels.ref import fake_quant_ref
+
+    rng = np.random.default_rng(SEED + 21)
+    cases = pid_b1_cases(rng, device)
+    for case in cases:
+        b1_check(*case)
+    by_label = {c[0]: c for c in cases}
+    out = {}
+
+    def pool_of(x):
+        n = max(2, -(-3 * L2_FLUSH_BYTES // (8 * x.numel())))
+        return [torch.randn(x.shape, device=device) * 2 for _ in range(n)]
+
+    for key, label in (("channel", "pid front SAT, per channel"),
+                       ("expand", "pid LUT-Conv 24->8 WRAP in (expand view)")):
+        _l, x, f, i, signed, ov = by_label[label]
+        if key == "expand":
+            src_pool = pool_of(x[..., 0])
+            shape = x.shape
+            view = lambda s: s[..., None].expand(shape)
+            ms = cuda_ms_cold(lambda s: fake_quant_fused(view(s), f, i, signed=signed,
+                                                         overflow=ov), src_pool)
+            plain = cuda_ms_cold(lambda s: fake_quant_ref(view(s), f, i, signed, ov),
+                                 src_pool, iters=8)
+            n_bytes = 4 * x.numel() + 4 * x[..., 0].numel() + 8 * f.numel()
+        else:
+            pool = pool_of(x)
+            ms = cuda_ms_cold(lambda a: fake_quant_fused(a, f, i, signed=signed,
+                                                         overflow=ov), pool)
+            plain = cuda_ms_cold(lambda a: fake_quant_ref(a, f, i, signed, ov), pool,
+                                 iters=8)
+            n_bytes = 8 * x.numel() + 8 * f.numel()
+        b_ms, b_by = bound(n_bytes, 10 * x.numel())
+        out[key] = (ms, plain, b_ms, b_by, tuple(x.shape))
+    _l, w, f, i, signed, ov = by_label["pid front weights SAT, per element"]
+    ms_w = cuda_ms(lambda: fake_quant_fused(w, f, i, signed=signed, overflow=ov), iters=50)
+    plain_w = cuda_ms(lambda: fake_quant_ref(w, f, i, signed, ov), iters=50)
+    bw_ms, bw_by = bound(16 * w.numel(), 10 * w.numel())
+    for key, what in (("channel", "front SAT per channel"),
+                      ("expand", "LUT-Conv 24->8 WRAP on the expand view")):
+        ms, plain, b_ms, b_by, shape = out[key]
+        print(f"[pid-B1] {what}, x {shape}, cold L2: kernel {ms:.5f} ms, plain "
+              f"{plain:.5f} ms, bound {b_ms:.5f} ms ({b_by})")
+    print(f"[pid-B1] front weights SAT per element (20, 8), warm: kernel {ms_w:.5f} ms, "
+          f"plain {plain_w:.5f} ms, bound {bw_ms:.6f} ms ({bw_by}; a launch sets it)")
+    report["fake_quant"].update({
+        "pid_sat_channel_ms": out["channel"][0], "pid_sat_channel_plain_ms": out["channel"][1],
+        "pid_sat_channel_bound_ms": out["channel"][2],
+        "pid_expand_wrap_ms": out["expand"][0], "pid_expand_wrap_plain_ms": out["expand"][1],
+        "pid_expand_bound_ms": out["expand"][2],
+        "pid_sat_element_ms": ms_w, "pid_sat_element_plain_ms": plain_w,
+        "pid_sat_element_bound_ms": bw_ms})
+
+
+def phase_pid_fused(device, layers, data):
+    """One pid step with the LUT layers on the fused pair (B2 forward, B3
+    backward at 24->8, 24->4 and 4->1, H = 8, 19,200 rows) against the same
+    step through the plain versions: a check of the conv layers' fused
+    route, not the example's path."""
+    wf, cnt = pid_batch(data, 1)
+    fresh = [copy.deepcopy(layer) for layer in layers]
+    _cpu, n_flips, worst, got = compare_pid_step_to_plain(fresh, wf, cnt, fused=True)
+    check(got == PID_FUSED_STEP, f"fused pid step launched {got}, not {PID_FUSED_STEP}")
+    print(f"[pid-fused] one step of the trained hybrid with its LUT layers on B2/B3 "
+          f"({PID_BATCH * PID_WF_LEN // 20} rows): launches {got}; loss, MSE, EBOPs and "
+          f"every gradient agree with the plain step (CPU) within tolerance (worst "
+          f"{worst:.3f} of it; {n_flips} cell codes flip between the two)")
+
+
+def phase_pid_b4(device, served, report):
+    """B4 on the pid chains: a graph replay equal to an eager call at each
+    context, then timed beside its bound and its plain version."""
+    from repro_torch.kernels.lut_serve_cuda import run_chain, run_chain_plain
+
+    for ctx, sv in served.items():
+        chain, packed = sv["chain"], sv["packed"]
+        for b, x in sv["xs"].items():
+            check(b4_graph_replay(chain, x),
+                  f"B4 pid ctx={ctx}: a graph replay differs from the eager call at B={b}")
+            ms = cuda_ms(lambda: run_chain(chain, x), iters=50)
+            plain = cuda_ms(lambda: run_chain_plain(chain, x), iters=5)
+            b_ms, b_by = b4_bound(chain, packed, b)
+            print(f"[pid-B4] ctx={ctx} B={b}: kernel {ms:.5f} ms, plain {plain:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}); graph replay equal to eager")
+            tag = f"pid_ctx{ctx}_b{b}"
+            report["lut_serve"].update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain,
+                                        f"{tag}_bound_ms": b_ms})
+
+
 def synthetic_chain(rng, dtype):
     """A seeded packed chain with everything the JSC-HLF chain lacks."""
     import torch
@@ -2205,7 +2674,8 @@ def main() -> int:
     report = {}
     paths = {"serve": ("lut_dense", "lut_serve"),
              "train": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
-             "loop": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve")}
+             "loop": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
+             "pid": ("fake_quant", "lut_serve")}
     launches = {}
     try:
         phase_device()
@@ -2229,6 +2699,13 @@ def main() -> int:
         phase_loop(device)
         launches["loop"] = ops.launch_counts()
         loop = loop_timings(device)
+        pid_layers, pid_data, pid_cpu = phase_pid(device)
+        ops.reset_launch_counts()                      # path 4: the pid hybrid
+        pid = phase_pid_run(device, pid_layers, pid_data, pid_cpu)
+        launches["pid"] = ops.launch_counts()
+        phase_pid_b1(device, report)
+        phase_pid_fused(device, pid_layers, pid_data)
+        phase_pid_b4(device, pid["served"], report)
         for path, names in paths.items():
             check(all(launches[path][n] > 0 for n in names),
                   f"the {path} path skipped a kernel: launches {launches[path]}")
@@ -2255,6 +2732,10 @@ def main() -> int:
           f"steps/s at B={JSC_BATCH}")
     print("[loop] summary, steady ms/step (device idle share): " + "; ".join(
         f"{name} {v['steady']:.4f} ({v['idle']:.3f})" for name, v in loop.items()))
+    print(f"[pid] summary: {pid['ms_step']:.4f} device ms/step, {pid['host_ms_step']:.4f} "
+          f"host ms/step, {pid['steps_per_s']:.2f} steps/s at B={PID_BATCH} x "
+          f"{PID_WF_LEN} samples; separation {pid['sep']:.4f} (truth {pid['sep_true']:.4f}); "
+          + "; ".join(f"ctx={c}: {v['n_instrs']} instrs" for c, v in pid["served"].items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

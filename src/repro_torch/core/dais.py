@@ -28,7 +28,7 @@ int64 arrays of shape (B,)), mirroring da4ml's batched emulation mode.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -446,3 +446,20 @@ def _tree_add(prog: DaisProgram, regs: List[int], f: int) -> int:
             nxt.append(regs[-1])
         regs = nxt
     return regs[0]
+
+
+# --------------------------------------------------------------------------- #
+# frontend: lives in core/lower.py (graph lowering with a per-layer-type
+# registry); this wrapper keeps the reference's import path.
+# --------------------------------------------------------------------------- #
+def compile_sequential(layers: Sequence, input_f: int, input_i: int,
+                       input_signed: bool = True) -> DaisProgram:
+    """Lower a flat list of (``LUTDense`` | ``HGQDense``) layers to DAIS.
+
+    A thin wrapper over ``repro_torch.core.lower.compile_sequential``
+    (imported here, at the call, because ``core/lower.py`` imports this
+    module); ``core.lower.lower`` is the general entry point.
+    """
+    from repro_torch.core.lower import compile_sequential as _impl
+
+    return _impl(layers, input_f, input_i, input_signed)

@@ -19,7 +19,15 @@ The module keeps the reference's parameter keys and layouts: ``w0``/``b0``/
 the fused pair (kernel B2 forward, kernel B3 backward, ``kernels/ops.py``),
 except in train mode with batch-norm, whose batch statistics need the
 pre-quantization activations: that combination takes the einsum path, as in
-the reference.  The conv wrappers wait for a later slice.
+the reference.
+
+``LUTConv1D`` / ``LUTConv2D`` are im2col followed by LUT-Dense (paper
+§IV-A): each holds a ``dense`` LUT-Dense over the ``(kernel·C_in, C_out)``
+cell grid, whose parameters carry the reference's keys, and runs it on the
+patches of :func:`im2col_1d` / :func:`im2col_2d` (k-major, c-minor, as the
+lowering's patch grids assume).  Patches are taken with ``F.pad`` and
+``Tensor.unfold``: their backward sums each input's windows in a fixed
+order, with no atomics, so a step repeats bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.ebops import ebops_lut
@@ -215,3 +224,116 @@ class LUTDense(nn.Module):
                 mean, var = self.bn_mean, self.bn_var
             y = (y - mean) * torch.rsqrt(var + 1e-5) * self.bn_scale + self.bn_bias
         return fake_quant(self.q_out, y, self.cfg_out, train=train), updates
+
+
+# --------------------------------------------------------------------------- #
+# im2col helpers + LUT-Conv
+# --------------------------------------------------------------------------- #
+def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """SAME padding as ``jax.lax.conv`` / TF: ceil(size/stride) output
+    positions, total pad ``(out-1)*stride + kernel - size`` clamped at 0,
+    split low side first."""
+    out = -(-size // stride)
+    pad = max((out - 1) * stride + kernel - size, 0)
+    return pad // 2, pad - pad // 2
+
+
+def _windows(x: torch.Tensor, dim: int, kernel: int, stride: int) -> torch.Tensor:
+    """``x.unfold(dim, kernel, stride)``, empty where ``x`` is shorter than
+    one window (the reference's index grid then has no rows)."""
+    if x.shape[dim] < kernel:
+        shape = list(x.shape)
+        shape[dim] = 0
+        return x.new_zeros(shape + [kernel])
+    return x.unfold(dim, kernel, stride)
+
+
+def im2col_1d(x: torch.Tensor, kernel: int, stride: int = 1,
+              padding: str = "VALID") -> torch.Tensor:
+    """(..., T, C) -> (..., T', kernel*C) patch extraction, k-major and
+    c-minor (``repro.core.lut_layers.im2col_1d``)."""
+    if padding == "SAME":
+        lo, hi = _same_pads(x.shape[-2], kernel, stride)
+        x = F.pad(x, (0, 0, lo, hi))
+    p = _windows(x, -2, kernel, stride)                 # (..., T', C, K)
+    p = p.transpose(-1, -2)                             # (..., T', K, C)
+    return p.reshape(*p.shape[:-2], kernel * x.shape[-1])
+
+
+def im2col_2d(x: torch.Tensor, kernel: Tuple[int, int],
+              stride: Tuple[int, int] = (1, 1),
+              padding: str = "VALID") -> torch.Tensor:
+    """(..., H, W, C) -> (..., H', W', kh*kw*C), (kh, kw)-major, c-minor."""
+    kh, kw = kernel
+    sh, sw = stride
+    if padding == "SAME":
+        hlo, hhi = _same_pads(x.shape[-3], kh, sh)
+        wlo, whi = _same_pads(x.shape[-2], kw, sw)
+        x = F.pad(x, (0, 0, wlo, whi, hlo, hhi))
+    c = x.shape[-1]
+    p = _windows(x, -3, kh, sh)                         # (..., H', W, C, kh)
+    p = _windows(p, -3, kw, sw)                         # (..., H', W', C, kh, kw)
+    n = p.dim()
+    p = p.permute(*range(n - 3), n - 2, n - 1, n - 3)  # (..., H', W', kh, kw, C)
+    return p.reshape(*p.shape[:-3], kh * kw * c)
+
+
+class _LUTConv(nn.Module):
+    """im2col + a ``dense`` LUT-Dense; ``forward(x) -> (y, Aux)``."""
+
+    def _patches(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor, *, fused: Optional[bool] = None):
+        return self.dense(self._patches(x), fused=fused)
+
+
+class LUTConv1D(_LUTConv):
+    """1-D LUT-Conv over (..., T, C_in); the cells are ``dense``'s
+    ``(kernel*C_in, C_out)`` grid, shared by every output position."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
+                 padding: str = "VALID", hidden: int = 8,
+                 n_hidden_layers: int = 1, activation: str = "tanh",
+                 use_batchnorm: bool = False,
+                 q_in: QuantConfig = Q_IN_DEFAULT,
+                 q_out: QuantConfig = Q_OUT_DEFAULT,
+                 use_fused: bool = False, *, device="cuda",
+                 generator: torch.Generator):
+        super().__init__()
+        self.c_in, self.c_out, self.kernel = c_in, c_out, kernel
+        self.stride, self.padding = stride, padding
+        self.hidden, self.activation = hidden, activation
+        self.dense = LUTDense(c_in * kernel, c_out, hidden, n_hidden_layers,
+                              activation, use_batchnorm, q_in, q_out,
+                              use_fused, device=device, generator=generator)
+        self.train(False)
+
+    def _patches(self, x):
+        return im2col_1d(x, self.kernel, self.stride, self.padding)
+
+
+class LUTConv2D(_LUTConv):
+    """2-D LUT-Conv over (..., H, W, C_in); cells ``(kh*kw*C_in, C_out)``."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: str = "VALID",
+                 hidden: int = 8, n_hidden_layers: int = 1,
+                 activation: str = "tanh", use_batchnorm: bool = False,
+                 q_in: QuantConfig = Q_IN_DEFAULT,
+                 q_out: QuantConfig = Q_OUT_DEFAULT,
+                 use_fused: bool = False, *, device="cuda",
+                 generator: torch.Generator):
+        super().__init__()
+        self.c_in, self.c_out = c_in, c_out
+        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.padding = padding
+        self.hidden, self.activation = hidden, activation
+        kh, kw = self.kernel
+        self.dense = LUTDense(c_in * kh * kw, c_out, hidden, n_hidden_layers,
+                              activation, use_batchnorm, q_in, q_out,
+                              use_fused, device=device, generator=generator)
+        self.train(False)
+
+    def _patches(self, x):
+        return im2col_2d(x, self.kernel, self.stride, self.padding)

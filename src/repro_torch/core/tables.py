@@ -102,14 +102,21 @@ class LayerTables:
         return in_shift, mask, out_shift
 
 
-def extract_tables(layer: LUTDense) -> LayerTables:
+def extract_tables(layer) -> LayerTables:
     """Enumerate all input codes of every cell through the layer's MLPs.
 
-    The MLP runs in float32 on the layer's device, the same function the
-    eval forward evaluates, so the tables reproduce that forward exactly.
+    Accepts ``LUTDense`` or a conv wrapper through its ``dense`` view
+    (``LUTConv1D/2D``): a convolution's cells are its dense equivalent's
+    ``(kernel*C_in, C_out)`` grid, extracted once and shared by every
+    spatial site of the lowered program.  The MLP runs in float32 on the
+    layer's device, the same function the eval forward evaluates, so the
+    tables reproduce that forward exactly.
     """
     if not isinstance(layer, LUTDense):
-        raise TypeError(f"cannot extract truth tables from {type(layer)}")
+        dense = getattr(layer, "dense", None)
+        if not isinstance(dense, LUTDense):
+            raise TypeError(f"cannot extract truth tables from {type(layer)}")
+        layer = dense
     f_in, i_in = int_bits(layer.q_in, layer.cfg_in)
     f_out, i_out = int_bits(layer.q_out, layer.cfg_out)
     k_in = 1 if layer.cfg_in.signed else 0

@@ -38,3 +38,29 @@ def jsc_hlf(seed: int, n: int, split: str = "train") -> Tuple[np.ndarray, np.nda
     x[:, 5] = np.tanh(x[:, 5]) * (1 + 0.3 * y)
     x[:, 10] = x[:, 10] * x[:, 11] * 0.5
     return x.astype(np.float32), y.astype(np.int32)
+
+
+# ------------------------------------------------------------- CEPC PID wave
+def cepc_waveform(seed: int, n: int, length: int = 3000,
+                  split: str = "train") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Drift-chamber-like waveforms with primary-cluster impulse trains.
+
+    Returns (waveform (n, length), window_counts (n, length//20), species).
+    Kaons and pions differ in cluster density: the separation-power
+    observable of the paper's PID task (§V-F).
+    """
+    rng = _rng(seed, 30 + {"train": 0, "val": 1, "test": 2}[split])
+    species = rng.integers(0, 2, size=n)                   # 0=pion, 1=kaon
+    dens = np.where(species == 1, 0.012, 0.009)            # clusters / sample
+    wf = rng.normal(0, 0.05, size=(n, length)).astype(np.float32)
+    counts = np.zeros((n, length // 20), np.float32)
+    tail = np.exp(-np.arange(40) / 8.0).astype(np.float32)
+    for i in range(n):
+        n_cl = rng.poisson(dens[i] * length)
+        pos = np.sort(rng.integers(0, length - 45, size=n_cl))
+        amp = rng.uniform(0.4, 1.2, size=n_cl)
+        for p_, a_ in zip(pos, amp):
+            wf[i, p_:p_ + 40] += a_ * tail
+            counts[i, p_ // 20] += 1.0
+    wf = np.clip(wf, 0.0, 8.0 - 2 ** -9)                   # the ADC clamp
+    return wf, counts, species.astype(np.int32)

@@ -9,6 +9,12 @@ torch's generators differ.  DAIS programs cross as
 ``DaisProgram.to_arrays()`` / ``from_arrays()`` (wire format v2), which the
 port reads unchanged.
 
+An ``HGQDense`` crosses with the keys ``w``, ``b``, ``q_w`` and ``q_a``.  A
+conv wrapper (``LUTConv1D/2D``, ``HGQConv1D``) crosses as its ``dense``
+layer's dict, as the reference's conv parameters are its dense's.  The PID
+hybrid crosses as the reference example's ``{"front", "lc1", "lc2",
+"head"}`` dict.
+
 A stack crosses as ``{"l0": layer dict, "l1": ...}``.  The Adam state
 crosses as the reference's ``{"m": stack dict, "v": stack dict, "step"}``;
 the reference keeps moments for the BN ``bn_mean`` / ``bn_var`` too, which
@@ -23,12 +29,20 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.hgq_layers import HGQDense
 from repro_torch.core.lut_layers import LUTDense
+from repro_torch.models.pid import PID_KEYS
 
-_QUANTIZERS = ("q_in", "q_out")
+_QUANTIZERS = ("q_in", "q_out", "q_w", "q_a")
 
 
-def _entries(module: LUTDense):
+def _dense_of(layer):
+    """The layer that carries ``layer``'s parameters: a conv wrapper's
+    ``dense``, else the layer itself."""
+    return getattr(layer, "dense", layer)
+
+
+def _entries(module):
     """(key, sub-key or None, tensor) for every reference parameter."""
     out = []
     for name, t in list(module.named_parameters()) + list(module.named_buffers()):
@@ -37,11 +51,7 @@ def _entries(module: LUTDense):
     return out
 
 
-def lut_dense_params_from_numpy(module: LUTDense, d: Dict) -> LUTDense:
-    """Load a reference parameter dict (numpy leaves) into ``module``.
-
-    Keys and shapes must match the module's exactly; returns the module.
-    """
+def _from_numpy(module, d: Dict):
     want = {(k, s) for k, s, _ in _entries(module)}
     got = {(k, s) for k, v in d.items()
            for s in (v if k in _QUANTIZERS else [None])}
@@ -58,8 +68,7 @@ def lut_dense_params_from_numpy(module: LUTDense, d: Dict) -> LUTDense:
     return module
 
 
-def lut_dense_params_to_numpy(module: LUTDense) -> Dict:
-    """The module's parameters as a reference-shaped dict of numpy arrays."""
+def _to_numpy(module) -> Dict:
     d: Dict = {}
     for key, sub, t in _entries(module):
         a = t.detach().cpu().numpy().copy()
@@ -68,6 +77,69 @@ def lut_dense_params_to_numpy(module: LUTDense) -> Dict:
         else:
             d[key] = a
     return d
+
+
+def _check_type(module, cls):
+    if not isinstance(module, cls):
+        raise TypeError(f"expected a {cls.__name__}, got {type(module).__name__}")
+
+
+def lut_dense_params_from_numpy(module: LUTDense, d: Dict) -> LUTDense:
+    """Load a reference ``LUTDense`` parameter dict (numpy leaves) into
+    ``module``.  Keys and shapes must match exactly; returns the module."""
+    _check_type(module, LUTDense)
+    return _from_numpy(module, d)
+
+
+def lut_dense_params_to_numpy(module: LUTDense) -> Dict:
+    """The module's parameters as a reference-shaped dict of numpy arrays."""
+    _check_type(module, LUTDense)
+    return _to_numpy(module)
+
+
+def hgq_dense_params_from_numpy(module: HGQDense, d: Dict) -> HGQDense:
+    """Load a reference ``HGQDense`` parameter dict (``w``, ``b``, ``q_w``,
+    ``q_a``) into ``module``; keys and shapes must match exactly."""
+    _check_type(module, HGQDense)
+    return _from_numpy(module, d)
+
+
+def hgq_dense_params_to_numpy(module: HGQDense) -> Dict:
+    _check_type(module, HGQDense)
+    return _to_numpy(module)
+
+
+def layer_params_from_numpy(layer, d: Dict):
+    """Load a reference layer dict into ``layer`` (a dense layer or a conv
+    wrapper, through its ``dense``); returns the layer."""
+    dense = _dense_of(layer)
+    if isinstance(dense, HGQDense):
+        hgq_dense_params_from_numpy(dense, d)
+    else:
+        lut_dense_params_from_numpy(dense, d)
+    return layer
+
+
+def layer_params_to_numpy(layer) -> Dict:
+    dense = _dense_of(layer)
+    if isinstance(dense, HGQDense):
+        return hgq_dense_params_to_numpy(dense)
+    return lut_dense_params_to_numpy(dense)
+
+
+def pid_params_from_numpy(layers, d: Dict):
+    """Load the reference example's ``{"front", "lc1", "lc2", "head"}``
+    dict (``jax.tree.map(np.asarray, params)``) into the PID hybrid's
+    ``(front, lc1, lc2, head)``; returns the layers."""
+    if set(d) != set(PID_KEYS) or len(layers) != len(PID_KEYS):
+        raise KeyError(f"pid keys {sorted(d)} do not match {PID_KEYS}")
+    for key, layer in zip(PID_KEYS, layers):
+        layer_params_from_numpy(layer, d[key])
+    return layers
+
+
+def pid_params_to_numpy(layers) -> Dict:
+    return {key: layer_params_to_numpy(layer) for key, layer in zip(PID_KEYS, layers)}
 
 
 def stack_params_from_numpy(layers, d: Dict):

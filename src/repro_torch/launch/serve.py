@@ -6,6 +6,14 @@ program is compiled to a serving engine behind the bit-exact
 ``verify_engine`` gate; then one pre-formed batch of random in-range codes
 is served ``--gen`` times and checked against ``DaisProgram.run``.
 
+``--model pid-hybrid`` swaps the stack for the paper's hybrid conv PID model
+(``models/pid.py``: HGQ conv front, two LUT convs, LUT head, window sum),
+untrained from ``--seed``, lowered over a ``--ctx``-sample waveform context
+(a multiple of the 20-sample DAQ window).  At one window (``--ctx 20``) the
+program does not compose into fused stages and the generic runner that the
+reference serves it on is not ported yet: the launcher exits with the
+``EngineRequirementError``.
+
 ``--engine pallas`` prefers the one-launch packed chain (kernel B4); a chain
 that cannot pack degrades to the fused path with an ``EnginePathWarning``,
 and ``--require-pallas`` turns that into a hard exit.  ``--engine tables``
@@ -18,6 +26,8 @@ Usage (the paper's JSC-HLF model at its real widths)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine pallas \\
         --lut-dims 16,20,5 --lut-hidden 8 --batch 16600 --gen 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine pallas \\
+        --model pid-hybrid --ctx 100 --batch 1024
 """
 
 from __future__ import annotations
@@ -39,12 +49,44 @@ def build_lut_stack(dims, hidden: int, *, device, generator):
             for k, (ci, co) in enumerate(zip(dims[:-1], dims[1:]))]
 
 
+def build_model_program(args, device):
+    """Lower the model of ``args`` (untrained, from ``args.seed``) to a DAIS
+    program; returns it with a one-line description."""
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.model == "pid-hybrid":
+        from repro_torch.core.lower import lower
+        from repro_torch.models.pid import build_pid_graph, build_pid_layers
+
+        layers = build_pid_layers(hidden=args.lut_hidden, device=device,
+                                  generator=gen)
+        try:
+            graph = build_pid_graph(layers, n_samples=args.ctx)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        return lower(graph), f"model=pid-hybrid ctx={args.ctx}"
+
+    from repro_torch.core.lower import compile_sequential
+
+    dims = [int(d) for d in args.lut_dims.split(",")]
+    if len(dims) < 2:
+        raise SystemExit("--lut-dims needs at least in,out (e.g. 16,5)")
+    layers = build_lut_stack(dims, args.lut_hidden, device=device, generator=gen)
+    return (compile_sequential(layers, args.in_f, args.in_i),
+            f"model=lut-stack dims={dims}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", choices=("tables", "pallas"), default="tables",
                     help="tables: fused per-stage engine; pallas: the "
                          "one-launch packed chain (kernel B4) preferred")
-    ap.add_argument("--model", choices=("lut-stack",), default="lut-stack")
+    ap.add_argument("--model", choices=("lut-stack", "pid-hybrid"),
+                    default="lut-stack",
+                    help="lut-stack: LUT-Dense chain from --lut-dims; "
+                         "pid-hybrid: the paper's hybrid conv PID model")
+    ap.add_argument("--ctx", type=int, default=100,
+                    help="pid-hybrid waveform context length in samples "
+                         "(multiple of the 20-sample DAQ window)")
     ap.add_argument("--lut-dims", default="16,20,5",
                     help="comma-separated layer widths of the LUT-Dense stack")
     ap.add_argument("--lut-hidden", type=int, default=8)
@@ -70,17 +112,11 @@ def main(argv=None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available")
 
-    from repro_torch.core.lower import compile_sequential
     from repro_torch.kernels.lut_serve import input_code_bounds
     from repro_torch.serve.api import EngineRequirementError, EngineSpec, build
 
-    dims = [int(d) for d in args.lut_dims.split(",")]
-    if len(dims) < 2:
-        raise SystemExit("--lut-dims needs at least in,out (e.g. 16,5)")
-    gen = torch.Generator().manual_seed(args.seed)
     t0 = time.monotonic()
-    layers = build_lut_stack(dims, args.lut_hidden, device=device, generator=gen)
-    prog = compile_sequential(layers, args.in_f, args.in_i)
+    prog, what = build_model_program(args, device)
     t_lower = time.monotonic() - t0
 
     spec = EngineSpec(engine="pallas" if args.engine == "pallas" else "fused",
@@ -94,7 +130,7 @@ def main(argv=None) -> None:
     pk = (f" launches={engine.n_launches} "
           f"packed_table_bytes={engine.packed_table_bytes}"
           if engine.path == "pallas" else "")
-    print(f"[serve] model=lut-stack dims={dims} instrs={prog.n_instrs()} "
+    print(f"[serve] {what} instrs={prog.n_instrs()} "
           f"path={engine.path} groups={engine.n_groups} "
           f"dtype={str(engine.dtype).replace('torch.', '')} "
           f"device={device}{pk}")

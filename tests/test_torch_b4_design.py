@@ -449,3 +449,39 @@ def test_plain_b3_matches_jax_grad_past_sixteen_hidden(hidden):
         assert tuple(t.shape) == w.shape
         scale = max(float(np.abs(w).max()), 1e-6)
         assert float(np.abs(t.numpy() - w).max()) <= 1e-5 * scale, name
+
+
+# a verbose CUDA graph DOT dump (cudaGraphDebugDotPrint) of two torch kernels,
+# as the H100 machine's CUDA 12.8 writes it
+_DOT = r'''digraph dot {
+subgraph cluster_2 {
+label="graph_2" graph[style="dashed"];
+"graph_2_node_0"[style="bold" shape="record" label="{KERNEL
+| {ID | 0 (topoId: 1) | _ZN2at6native29vectorized_elementwise_kernelILi4ENS0_21CUDAFunctorOnSelf_addIfEESt5arrayIPcLm2EEEEviT0_T1_\<\<\<1,128,0\>\>\>}
+| {{node handle | func handle} | {0x0000000014553D80 | 0x000000000C475070}}
+| {cooperative | 0}
+| {priority | 0}
+}"];
+
+"graph_2_node_1"[style="bold" shape="record" label="{KERNEL
+| {ID | 1 (topoId: 0) | _ZN45_GLOBAL__N__86f15fb6_12_lut_serve_cu_edcc227822lut_serve_chain_kernelIiLb1EEEvPKT_PS1_iPKlii\<\<\<32,512,221888\>\>\>}
+| {{node handle | func handle} | {0x00000000145544E8 | 0x000000000940F740}}
+| {cooperative | 0}
+| {priority | 0}
+}"];
+
+"graph_2_node_0" -> "graph_2_node_1" [headlabel=0];
+}
+}
+'''
+
+
+def test_dot_kernel_names_reads_a_graph_dump():
+    """``chip_smoke.device_kernels``' fallback counts a call's kernels from
+    the DOT dump of its CUDA graph: one name per kernel node, without the
+    launch configuration."""
+    names = chip_smoke.dot_kernel_names(_DOT)
+    assert len(names) == 2
+    assert "vectorized_elementwise_kernel" in names[0]
+    assert names[1].endswith("lut_serve_chain_kernelIiLb1EEEvPKT_PS1_iPKlii")
+    assert chip_smoke.dot_kernel_names("digraph dot {\n}\n") == []

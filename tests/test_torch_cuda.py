@@ -225,6 +225,18 @@ def test_b4_graph_replay_and_one_device_kernel(device):
         assert len(device_kernels(lambda: run_chain(chain, x))) == 1, b
 
 
+def test_graph_kernels_counts_one_b4_node(device):
+    """``device_kernels``' fallback when profiles record nothing: the call
+    captured in a CUDA graph holds one B4 kernel node."""
+    from chip_smoke import b4_codes, graph_kernels
+    from repro_torch.kernels.lut_serve_cuda import run_chain
+
+    prog, _, chain = _jsc_chain(device, seed=2)
+    x = b4_codes(prog, np.random.default_rng(1024), 1024, chain.dtype, device)
+    names = graph_kernels(lambda: run_chain(chain, x))
+    assert len(names) == 1 and "lut_serve_chain_kernel" in names[0], names
+
+
 def test_b4_global_and_resident_stages_in_one_launch(device):
     """A 16->64->5 stack: its first stage's 524 KB of tables cannot stay in
     shared memory and are read from global memory, its second stage's are
@@ -597,3 +609,63 @@ def test_prefetcher_never_rewrites_a_pinned_buffer_in_flight(device, slow):
             want = stack_batches(get_batch, step, k)
             for n, a in want.items():
                 assert np.array_equal(chunk[n].cpu().numpy(), a), (step, n)
+
+
+# ---------------------------------------------- the PID hybrid (ROADMAP A2)
+def _pid_setup(monkeypatch, device, batch=32, steps=4):
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "PID_BATCH", batch)
+    monkeypatch.setattr(chip_smoke, "PID_STEPS", steps)
+    monkeypatch.setattr(chip_smoke, "PID_N_TRAIN", 4 * batch)
+    monkeypatch.setattr(chip_smoke, "PID_N_TEST", 64)
+    layers, data = chip_smoke.pid_setup(device)
+    return chip_smoke, layers, data
+
+
+@pytest.mark.parametrize("fused", [None, True], ids=["einsum", "fused"])
+def test_pid_step_on_card_matches_plain(device, monkeypatch, fused):
+    """A pid step at 3000-sample waveforms on the card against the same step
+    through the plain versions: the example's path (B1 x8) and the LUT
+    layers on the fused pair (B1 x2, B2 and B3 x3)."""
+    cs, layers, data = _pid_setup(monkeypatch, device)
+    wf, cnt = cs.pid_batch(data, 0)
+    _cpu, _flips, _worst, got = cs.compare_pid_step_to_plain(layers, wf, cnt, fused)
+    assert got == (cs.PID_FUSED_STEP if fused else cs.PID_PER_STEP)
+
+
+def test_b1_bit_exact_at_the_pid_shapes(device):
+    """B1 at the pid path's calls: per-channel SAT (128, 150, 20)/(20,),
+    per-element SAT (20, 8), the LUT-Convs' 4-D expand-view WRAP and SAT."""
+    from chip_smoke import b1_check, pid_b1_cases
+
+    for case in pid_b1_cases(np.random.default_rng(21), device):
+        b1_check(*case)                                  # raises on a difference
+
+
+@pytest.mark.parametrize("ctx,b", [(100, 1024), (100, 16600), (3000, 1024)])
+def test_b4_on_the_pid_chain_matches_plain(device, ctx, b):
+    """B4 on the untrained hybrid's chain (the front's 1.31 MB table in
+    global memory; at ctx 3000 every table but the head's, and 13-row
+    tiles): equal to the plain chain and the interpreter, a graph replay
+    equal to an eager call."""
+    import chip_smoke
+    from repro_torch.core.lower import lower
+    from repro_torch.kernels.lut_serve_cuda import run_chain, run_chain_plain
+    from repro_torch.models.pid import build_pid_graph, build_pid_layers
+    from repro_torch.serve.api import EngineSpec, build
+
+    layers = build_pid_layers(device=device, generator=torch.Generator().manual_seed(0))
+    prog = lower(build_pid_graph(layers, n_samples=ctx))
+    built = build(prog, EngineSpec(engine="pallas", require="pallas", n_random=256),
+                  device=device)
+    chain, _packed = chip_smoke.plain_chain(prog, built.engine, device)
+    assert chain.plan.table_soff[0] < 0                  # the front reads global memory
+    x = chip_smoke.b4_codes(prog, np.random.default_rng(ctx), b, built.engine.dtype, device)
+    got = run_chain(chain, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, run_chain_plain(chain, x))
+    assert torch.equal(got, built.engine.run(x))
+    rows = x[:64].cpu().numpy().astype(np.int64)
+    np.testing.assert_array_equal(got[:64].cpu().numpy().astype(np.int64), prog.run(rows))
+    assert chip_smoke.b4_graph_replay(chain, x)
