@@ -84,7 +84,27 @@ line:
    pid shapes bit for bit and timed, one step with the LUT layers on the
    fused pair (B2, B3) against the plain step, B4 on the pid chains with a
    graph replay and timed beside its bound;
-11. seeded packed chains covering what JSC-HLF does not, kernel B4 against
+11. the generic op-group runner and the IR tooling, on the models phases 8
+   and 10 trained: the JSC-HLF program on ``engine="groups"`` bit for bit
+   equal to ``DaisProgram.run`` and to the B4 engine on 8 batches each of
+   1024 and 16600 random codes, with no B4 launch; the pid hybrid at one
+   window (ctx 20, ROADMAP C4) built with ``engine="pallas"``, warned down
+   to the generic path, gated and served (8 batches of 1024), and
+   ``require="fused"`` raising; then, on the JSC program and the pid
+   program at ctx 100: dead-cell elimination (``build(optimize=True)``,
+   equal to ``lower(optimize=True)``) served through B4 behind the gate
+   against the unoptimized oracle, ``narrow=False`` through B4 against
+   ``narrow=True``, one B4 launch a batch and bit for bit equal to the
+   unoptimized engine; the three-way RTL attestation of the DCE'd program
+   (RTL simulation == unoptimized interpreter == the B4 engine on the card;
+   sha256 and wires printed) and the lint report (line counts).  The pid
+   program at ctx 3000 (201,001 instructions) is not simulated as RTL: the
+   numpy simulator would spend minutes of host time there and no device
+   time.  Then every engine of the phase timed: device busy ms a batch and
+   device kernels a call from a profiler trace, the CUDA-event span and the
+   host ms a batch: the generic runner's first card numbers, written down,
+   not tuned;
+12. seeded packed chains covering what JSC-HLF does not, kernel B4 against
    its plain version bit for bit in int32 and int64 compute: the synthetic
    chain (sum stages, non-identity gathers with the zero column, in-shifts,
    CMUL and WRAP epilogues, int8/int16/int32/int64 lanes), the wide chain
@@ -92,7 +112,7 @@ line:
    32 rows) and a 16->64->5 stack served through the gate, whose first
    stage's tables are read from global memory and second stage's staged in
    shared memory in one launch;
-12. the ``kernels`` JSON line, then the result line.
+13. the ``kernels`` JSON line, then the result line.
 
 ``python3 chip_smoke.py --b1-timing``, ``--b2-timing``, ``--b3-timing`` and
 ``--b4-timing`` print only kernel B1's, B2's, B3's or B4's timings (and B2's,
@@ -102,8 +122,10 @@ result line, to compare two trees in one call.
 
 The launch counters are zeroed just before each path (phases 5-6, phase 8
 after its step-1 comparison, phase 9 before its timings, and phase 10 after
-its step-1 comparison and before its off-path checks) and read just after
-it: each path must have launched each of its kernels.  Float32 matmuls and convolutions run without
+its step-1 comparison and before its off-path checks, phase 11 before the
+phase) and read just after it (phase 11 at its end, before its timings):
+each path must have launched each of its kernels, and in phase 11 every
+generic-path batch none.  Float32 matmuls and convolutions run without
 TF32.  Any failure exits non-zero with no result line; so does a machine
 without a CUDA device.
 """
@@ -849,35 +871,53 @@ def device_kernels(fn) -> list:
     """Names of the device kernels one call of ``fn`` runs: the "kernel"
     events of a torch.profiler trace of CPU and CUDA activity.  A profile has
     been seen on the H100 to record no device event, several in a row, for a
-    call that launched its kernel (PERF.md section 7), so this reads the
-    exported trace, as ``trace_summary`` does, takes a profile that records
-    none again, up to ``PROFILE_TRIES`` of them, and then counts the kernel
-    nodes of the call captured in a CUDA graph (``graph_kernels``)."""
+    call that launched its kernel (PERF.md section 7), so this takes a
+    profile that records none again, up to ``PROFILE_TRIES`` of them, and
+    then counts the kernel nodes of the call captured in a CUDA graph
+    (``graph_kernels``)."""
+    for _ in range(PROFILE_TRIES):
+        names = [name for name, _dur in profile_kernels(fn)]
+        if names:
+            return names
+    names = graph_kernels(fn)
+    print(f"[profile] {PROFILE_TRIES} profiles recorded no kernel; the call captured "
+          f"in a CUDA graph holds {len(names)} kernel nodes", file=sys.stderr)
+    return names
+
+
+def profile_kernels(fn) -> list:
+    """(name, device µs) of each "kernel" event in a torch.profiler trace of
+    CPU and CUDA activity around ``fn()``, read from the exported trace, as
+    ``trace_summary`` does.  The profiler takes one warm-up step of ``fn()``
+    before the step it records: a profile that starts on the call it traces
+    has been seen on the H100 to drop its first kernel events (PERF.md
+    section 7).  Empty (with the trace's events by category on stderr) when
+    the profile recorded no kernel."""
     import torch
     from repro_torch.kernels import build as kbuild
 
     path = kbuild.BUILD_DIR / "device_kernels.json"
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=activities) as prof:
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=activities,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+        for _ in range(2):
             fn()
             torch.cuda.synchronize()
-        prof.export_chrome_trace(str(path))
-        with open(path) as fh:
-            events = json.load(fh).get("traceEvents", [])
-        names = [e["name"] for e in events if e.get("cat") == "kernel"]
-        if names:
-            return names
+            prof.step()
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = [(e["name"], float(e.get("dur", 0.0))) for e in events
+               if e.get("cat") == "kernel"]
+    if not kernels:
         cats = {}
         for e in events:
             cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
         print(f"[profile] no kernel event in a profile; events by category {cats}",
               file=sys.stderr)
-    names = graph_kernels(fn)
-    print(f"[profile] {PROFILE_TRIES} profiles recorded no kernel; the call captured "
-          f"in a CUDA graph holds {len(names)} kernel nodes", file=sys.stderr)
-    return names
+    return kernels
 
 
 def graph_kernels(fn) -> list:
@@ -2405,6 +2445,229 @@ def phase_pid_b4(device, served, report):
                                         f"{tag}_bound_ms": b_ms})
 
 
+# --------------------------------------------------------------------------- #
+# Phase 11: the generic op-group runner and the IR tooling (dead-cell
+# elimination, narrow=False, Verilog, RTL simulation, lint) on the programs of
+# the models the train and pid paths trained
+TOOL_BATCHES = (1024, 16600)
+TOOL_N_BATCHES = 8
+TOOL_PID_BATCHES = (1024, 16600)
+TOOL_PID_N_BATCHES = 3
+TOOL_CTX = 100              # the pid context of the DCE, narrow and RTL checks
+TOOL_ONE_WINDOW = 20        # C4: the pid context that does not compose
+TOOL_RTL_ROWS = 512
+TOOL_TIMED_CALLS = 20
+TOOL_PROFILED_CALLS = 5
+
+
+def tool_codes(prog, b, n, seed):
+    from repro_torch.kernels.lut_serve import input_code_bounds
+
+    lo, hi = input_code_bounds(prog)
+    rng = np.random.default_rng(seed)
+    return [rng.integers(lo, hi + 1, (b, len(lo)), np.int64) for _ in range(n)]
+
+
+def tool_serve(tag, engine, batches, b4_per_batch, oracle=None, peer=None):
+    """Serve every batch of host codes in ``batches`` through ``engine``,
+    each launching B4 ``b4_per_batch`` times, equal bit for bit to
+    ``peer``'s outputs (host arrays, batch by batch) and to ``oracle.run``
+    where given; returns the outputs, brought to the host by ``.cpu()``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    outs = []
+    for k, codes in enumerate(batches):
+        x = torch.as_tensor(codes, device=engine.device).to(engine.dtype)
+        torch.cuda.synchronize()
+        before = ops.launch_counts()["lut_serve"]
+        out = engine.run(x)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()["lut_serve"] - before
+        check(got == b4_per_batch,
+              f"{tag}: {got} B4 launches for a batch, not {b4_per_batch}")
+        check(out.device.type == "cuda" and out.shape == (len(codes), engine.n_outputs),
+              f"{tag}: output {tuple(out.shape)} on {out.device}")
+        host = out.cpu().numpy().astype(np.int64)
+        if peer is not None:
+            check(np.array_equal(host, peer[k]), f"{tag}: != its peer engine at batch {k}")
+        if oracle is not None:
+            check(np.array_equal(host, oracle.run(codes)),
+                  f"{tag}: != DaisProgram.run at batch {k}")
+        outs.append(host)
+    return outs
+
+
+def tool_lint(tag, prog):
+    from repro_torch.launch.lint import lint_program
+
+    lines = []
+    rep = lint_program(prog, name=tag, echo=lines.append)
+    check(rep["ok"] and rep.get("dce_validated"), f"lint {tag}: {rep}")
+    ranges = next(l for l in lines if "ranges: required_width" in l).strip()
+    print(f"[tooling] lint {tag}: {len(lines)} lines ({ranges}; "
+          f"{rep.get('live_entries', '-')}/{rep.get('table_entries', '-')} composed "
+          f"table entries live; DCE round self-certified)")
+
+
+def phase_tooling(device, jsc_layers, pid_layers):
+    """Phase 11, the main path of the generic runner and the IR tooling:
+    returns the engines and batches the timings use and the launch counts
+    read at its end."""
+    import warnings
+
+    import torch
+    from repro_torch.core.lower import compile_sequential, lower
+    from repro_torch.core.rtl import verify_rtl
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_serve import (EnginePathWarning,
+                                               EngineRequirementError)
+    from repro_torch.models.pid import build_pid_graph
+    from repro_torch.serve.api import EngineSpec, build
+
+    t_phase = time.monotonic()
+    prog_j = compile_sequential(jsc_layers, TRAIN_IN_F, TRAIN_IN_I)
+    prog_p = lower(build_pid_graph(pid_layers, n_samples=TOOL_CTX))
+    prog_1 = lower(build_pid_graph(pid_layers, n_samples=TOOL_ONE_WINDOW))
+    jsc_x = {b: tool_codes(prog_j, b, TOOL_N_BATCHES, SEED + 40 + b) for b in TOOL_BATCHES}
+    pid_x = {b: tool_codes(prog_p, b, TOOL_PID_N_BATCHES, SEED + 50 + b)
+             for b in TOOL_PID_BATCHES}
+    one_x = tool_codes(prog_1, 1024, TOOL_N_BATCHES, SEED + 60)
+    pallas = dict(engine="pallas", require="pallas", verify="full", n_random=2048, seed=SEED)
+
+    # --- the generic runner on the trained JSC-HLF program, beside B4
+    gen = build(prog_j, EngineSpec(engine="groups", verify="full", n_random=2048,
+                                   seed=SEED), device=device)
+    check(gen.engine.path == "generic" and gen.engine.fuse_reason == "",
+          f"JSC engine='groups': path {gen.engine.path} ({gen.engine.fuse_reason})")
+    b4 = build(prog_j, EngineSpec(**pallas), device=device)
+    b4_out = {b: tool_serve(f"JSC B4 B={b}", b4.engine, xs, 1) for b, xs in jsc_x.items()}
+    for b, xs in jsc_x.items():
+        tool_serve(f"JSC generic B={b}", gen.engine, xs, 0, oracle=prog_j, peer=b4_out[b])
+    print(f"[tooling] JSC-HLF generic runner: {gen.engine.n_groups} op groups "
+          f"({prog_j.n_instrs()} instrs), {gen.engine.dtype}, gate PASSED on "
+          f"{gen.attestation['random']} random rows; {TOOL_N_BATCHES} batches x "
+          f"{'/'.join(map(str, TOOL_BATCHES))} rows, each bit-exact vs DaisProgram.run "
+          f"and the B4 engine, no B4 launch")
+
+    # --- C4: the one-window pid program degrades to the generic runner
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        one = build(prog_1, EngineSpec(engine="pallas", verify="full", n_random=1024,
+                                       seed=SEED), device=device)
+    warned = [str(w.message) for w in caught if issubclass(w.category, EnginePathWarning)]
+    check(one.engine.path == "generic" and len(warned) == 1
+          and "ADD nested inside a unary chain" in one.engine.fuse_reason,
+          f"pid ctx={TOOL_ONE_WINDOW}: path {one.engine.path}, warnings {warned}")
+    try:
+        build(prog_1, EngineSpec(engine="pallas", require="fused", verify="skip"),
+              device=device)
+        check(False, f"pid ctx={TOOL_ONE_WINDOW}: require='fused' did not raise")
+    except EngineRequirementError as e:
+        raised = str(e)
+    tool_serve(f"pid ctx={TOOL_ONE_WINDOW} generic", one.engine, one_x, 0, oracle=prog_1)
+    print(f"[tooling] pid ctx={TOOL_ONE_WINDOW} (C4): build(engine='pallas') warned "
+          f"\"{warned[0]}\"; path {one.engine.path}, {one.engine.n_groups} op groups "
+          f"({prog_1.n_instrs()} instrs), {one.engine.dtype}; gate PASSED on "
+          f"{one.attestation['random']} random rows; {TOOL_N_BATCHES} batches x 1024 "
+          f"bit-exact vs DaisProgram.run, no B4 launch; require='fused' raised "
+          f"EngineRequirementError: {raised[:60]}...")
+
+    # --- dead-cell elimination served through B4, gated against the oracle
+    b4_p = build(prog_p, EngineSpec(**pallas), device=device)
+    b4_p_out = {b: tool_serve(f"pid B4 B={b}", b4_p.engine, xs, 1)
+                for b, xs in pid_x.items()}
+    cases = {"jsc": (prog_j, b4, jsc_x, b4_out,
+                     compile_sequential(jsc_layers, TRAIN_IN_F, TRAIN_IN_I, optimize=True)),
+             f"pid ctx={TOOL_CTX}": (prog_p, b4_p, pid_x, b4_p_out,
+                                     lower(build_pid_graph(pid_layers, n_samples=TOOL_CTX),
+                                           optimize=True))}
+    engines = {"jsc generic": (gen.engine, jsc_x), "jsc B4": (b4.engine, jsc_x),
+               f"pid ctx={TOOL_ONE_WINDOW} generic": (one.engine, {1024: one_x}),
+               f"pid ctx={TOOL_CTX} B4": (b4_p.engine, pid_x)}
+    for tag, (prog, base, xs, base_out, lowered) in cases.items():
+        dce = build(prog, EngineSpec(optimize=True, **pallas), device=device)
+        check(dce.oracle is prog and dce.prog is not prog,
+              f"{tag} DCE: the gate did not run against the unoptimized oracle")
+        want, got = lowered.to_arrays(), dce.prog.to_arrays()
+        check(want.keys() == got.keys()
+              and all(np.array_equal(want[k], got[k]) for k in want),
+              f"{tag} DCE: build(optimize=True) != lower(optimize=True)")
+        for b, batches in xs.items():
+            tool_serve(f"{tag} DCE B={b}", dce.engine, batches, 1, oracle=prog,
+                       peer=base_out[b])
+        n_llut = (prog.count_ops().get("LLUT", 0), dce.prog.count_ops().get("LLUT", 0))
+        print(f"[tooling] {tag} DCE through B4: {dce.timings['dce_summary']}; LLUTs "
+              f"{n_llut[0]} -> {n_llut[1]}; packed_table_bytes "
+              f"{base.engine.packed_table_bytes} -> {dce.engine.packed_table_bytes}; "
+              f"{dce.engine.dtype}; gate vs the unoptimized oracle PASSED on "
+              f"{dce.attestation['random']} random rows; every batch one B4 launch, "
+              f"equal to the unoptimized B4 engine")
+        wide = build(prog, EngineSpec(narrow=False, **pallas), device=device)
+        for b, batches in xs.items():
+            tool_serve(f"{tag} narrow=False B={b}", wide.engine, batches, 1,
+                       oracle=prog, peer=base_out[b])
+        print(f"[tooling] {tag} narrow=False vs narrow=True through B4: dtype "
+              f"{wide.engine.dtype} vs {base.engine.dtype}; packed_table_bytes "
+              f"{wide.engine.packed_table_bytes} vs {base.engine.packed_table_bytes}; "
+              f"bit-exact on every batch, one B4 launch each")
+        t0 = time.monotonic()
+        att = verify_rtl(dce.prog, oracle=prog, engine=dce.engine,
+                         n_random=TOOL_RTL_ROWS, seed=SEED)
+        check(att["verdict"] == "bit-exact" and att["engine_path"] == "pallas",
+              f"{tag} RTL: {att}")
+        print(f"[tooling] {tag} RTL three-way (RTL sim of the DCE'd program == the "
+              f"unoptimized DaisProgram.run == the DCE'd B4 engine on the card): "
+              f"{att['verdict']} on {att['random']} random rows; {att['n_wires']} wires, "
+              f"verilog sha256 {att['verilog_sha256']} ({time.monotonic() - t0:.1f}s)")
+        tool_lint(tag, prog)
+        engines[f"{tag} DCE B4"] = (dce.engine, xs)
+        engines[f"{tag} narrow=False B4"] = (wide.engine, xs)
+    counts = ops.launch_counts()
+    print(f"[tooling] phase done in {time.monotonic() - t_phase:.1f}s; ctx=3000 is not "
+          f"simulated as RTL (numpy simulator: minutes of host time, no device time)")
+    return engines, counts
+
+
+def tooling_timings(engines):
+    """For every engine of phase 11, at each batch size: the device kernels
+    a call (the kernel nodes of one call captured in a CUDA graph), the
+    device busy ms a batch (the summed kernel durations of a torch.profiler
+    trace of ``TOOL_PROFILED_CALLS`` calls, from a trace that recorded every
+    one of their kernels: a profile has been seen to drop kernel events, so
+    up to ``PROFILE_TRIES`` are taken), the event span of a batch (CUDA
+    events around ``TOOL_TIMED_CALLS`` calls enqueued behind a sleep; for a
+    host-bound engine the host's enqueue gaps fall inside it) and the host
+    ms a batch (enqueue to synchronize)."""
+    import torch
+
+    for tag, (engine, xs) in engines.items():
+        for b, batches in xs.items():
+            x = torch.as_tensor(batches[0], device=engine.device).to(engine.dtype)
+            span = cuda_ms(lambda: engine.run(x), iters=TOOL_TIMED_CALLS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TOOL_TIMED_CALLS):
+                engine.run(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / TOOL_TIMED_CALLS * 1e3
+            per_call = len(graph_kernels(lambda: engine.run(x)))
+            want = per_call * TOOL_PROFILED_CALLS
+            busy = f"device busy ms/batch not measured (no profile recorded all {want} kernels)"
+            for _ in range(PROFILE_TRIES):
+                events = profile_kernels(
+                    lambda: [engine.run(x) for _ in range(TOOL_PROFILED_CALLS)])
+                if len(events) == want:
+                    busy = (f"{sum(dur for _name, dur in events) / TOOL_PROFILED_CALLS / 1e3:.5f}"
+                            f" device busy ms/batch")
+                    break
+                print(f"[profile] {tag} B={b}: {len(events)} of {want} kernels recorded",
+                      file=sys.stderr)
+            print(f"[tooling-time] {tag} B={b}: {busy}, {span:.5f} event-span ms/batch, "
+                  f"{wall:.5f} host ms/batch, {per_call} device kernels a call, "
+                  f"path {engine.path}, {engine.n_groups} groups")
+
+
 def synthetic_chain(rng, dtype):
     """A seeded packed chain with everything the JSC-HLF chain lacks."""
     import torch
@@ -2675,7 +2938,8 @@ def main() -> int:
     paths = {"serve": ("lut_dense", "lut_serve"),
              "train": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
              "loop": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
-             "pid": ("fake_quant", "lut_serve")}
+             "pid": ("fake_quant", "lut_serve"),
+             "tooling": ("lut_serve",)}
     launches = {}
     try:
         phase_device()
@@ -2706,6 +2970,9 @@ def main() -> int:
         phase_pid_b1(device, report)
         phase_pid_fused(device, pid_layers, pid_data)
         phase_pid_b4(device, pid["served"], report)
+        ops.reset_launch_counts()                      # path 5: generic runner, IR tooling
+        tool_engines, launches["tooling"] = phase_tooling(device, train_state[0], pid_layers)
+        tooling_timings(tool_engines)
         for path, names in paths.items():
             check(all(launches[path][n] > 0 for n in names),
                   f"the {path} path skipped a kernel: launches {launches[path]}")

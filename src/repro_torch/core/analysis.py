@@ -1,10 +1,12 @@
-"""Static analysis over DAIS programs: structural verifier and interval ranges.
+"""Static analysis over DAIS programs: verifier, interval ranges, TV.
 
-Port of passes 1 and 2 of ``repro.core.analysis`` (numpy only):
+Port of ``repro.core.analysis`` (numpy only), three passes over the SSA
+program:
 
 1. :func:`verify_program` — structural verifier (use-before-def, the IN
    layout ABI, segment/site consistency, LLUT index widths vs table sizes,
-   REQUANT parameter sanity), run after every lowering.
+   REQUANT parameter sanity), run after every lowering and after each
+   ``core/opt.py`` rewrite.
 
 2. :func:`analyze_ranges` — interval abstract interpretation: sound
    per-register ``[lo, hi]`` bounds (Python ints, so transients never wrap)
@@ -14,22 +16,29 @@ Port of passes 1 and 2 of ``repro.core.analysis`` (numpy only):
    the ``live`` windows that narrow table lanes in
    ``kernels/lut_serve_cuda.py``.
 
-Pass 3 of the reference (translation validation of dead-cell elimination)
-waits, with ``core/opt.py``, for a later slice.
+3. :func:`validate_rewrite` — translation validation for ``core/opt.py``.
+   ``eliminate_dead_cells`` emits a :class:`RewriteObligations` record of
+   every claim it made (folded constants, aliases, shift rewrites, the
+   register renumbering, sliced-row provenance); the checker re-derives
+   each claim from the *before* program's semantics and structurally
+   matches the *after* program against the mapping.
+
+``launch/lint.py`` is the CLI over all three.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NoReturn, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.dais import OP_DEPS, DaisProgram, Instr
 
 __all__ = [
-    "AnalysisError", "Diagnostic", "ValueRanges", "VerifyError",
-    "analyze_ranges", "index_window", "verify_program",
+    "AnalysisError", "Diagnostic", "RewriteObligations", "ValueRanges",
+    "VerifyError", "analyze_ranges", "index_window", "validate_rewrite",
+    "verify_program",
 ]
 
 # Exact arity of each op's args tuple (OP_DEPS only names the *register*
@@ -120,6 +129,24 @@ def _round_half_even(v: int, s: int) -> int:
     if rem < half:
         return floor
     return floor + (floor & 1)
+
+
+def requant_scalar(v: int, src_f: int, f: int, i: int, signed: bool,
+                   mode: str) -> int:
+    """Exact scalar REQUANT (the Python-int twin of ``dais._requant``)."""
+    shift = f - src_f
+    code = v << shift if shift >= 0 else _round_half_even(v, -shift)
+    width = f + i + (1 if signed else 0)
+    if width <= 0:
+        return 0
+    n = 1 << width
+    lo = -(n >> 1) if signed else 0
+    hi = lo + n - 1
+    if mode == "SAT":
+        return min(max(code, lo), hi)
+    return lo + ((code - lo) % n)
+
+
 
 
 def index_window(lo: int, hi: int, size: int) -> np.ndarray:
@@ -510,3 +537,249 @@ def _engine_bound(prog: DaisProgram, ranges: ValueRanges, proven: int) -> int:
     if any(seg.kind == "hgq" for seg in prog.segments):
         eng = max(eng, ranges.required)
     return eng
+
+
+# --------------------------------------------------------------------------- #
+# pass 3: translation validation for core/opt.py
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class RewriteObligations:
+    """Everything ``eliminate_dead_cells`` claims about its rewrite.
+
+    ``const`` maps before-indices to the folded value; ``alias`` to the
+    before-index they were collapsed onto; ``shift_rw`` to the
+    ``(before target, signed power-of-two code)`` CMUL rewrite; ``new_of``
+    is the surviving-instruction renumbering; ``keep_rows`` / ``row_map``
+    record the shared-table slicing per layer id.  All indices refer to
+    the *before* program except ``new_of``'s values.
+    """
+
+    const: Dict[int, int]
+    alias: Dict[int, int]
+    shift_rw: Dict[int, Tuple[int, int]]
+    new_of: Dict[int, int]
+    keep_rows: Dict[int, np.ndarray]
+    row_map: Dict[int, Dict[int, int]]
+
+
+def validate_rewrite(before: DaisProgram, after: DaisProgram,
+                     ob: RewriteObligations) -> None:
+    """Statically discharge a DCE rewrite's obligations.
+
+    Raises :class:`AnalysisError` (or :class:`VerifyError` for structural
+    breakage in ``after``) if any claim fails; returns ``None`` when the
+    rewrite is proven.  The checks are independent re-derivations — the
+    optimizer's own analysis functions are deliberately not reused.
+    """
+    verify_program(after)
+
+    def fail(msg: str) -> NoReturn:
+        raise AnalysisError(f"translation validation failed: {msg}")
+
+    if (list(before.input_f) != list(after.input_f)
+            or list(map(bool, before.input_signed)) != list(
+                map(bool, after.input_signed))
+            or list(before.output_f) != list(after.output_f)
+            or len(before.outputs) != len(after.outputs)):
+        fail("rewrite changed the program ABI (input/output grids)")
+
+    def resolve(r: int) -> int:
+        seen = set()
+        while r in ob.alias:
+            if r in seen:
+                fail(f"alias cycle through register {r}")
+            seen.add(r)
+            r = ob.alias[r]
+        return r
+
+    # --- constant claims: re-derive each from the before-program semantics
+    for idx, c in ob.const.items():
+        ins = before.instrs[idx]
+        op, a = ins.op, ins.args
+        ok = False
+        if op == "CONST":
+            ok = int(a[0]) == c
+        elif op == "LLUT":
+            row, size = _llut_slice(before, ins)
+            src_c = ob.const.get(a[0])
+            if src_c is not None:
+                ok = int(row[src_c % size]) == c
+            else:
+                ok = bool(row.size) and bool(np.all(row == c))
+        elif op == "REQUANT":
+            src, f, i, signed, mode, src_f = a
+            if int(f) + int(i) + (1 if signed else 0) <= 0:
+                ok = c == 0
+            elif ob.const.get(src) is not None:
+                ok = requant_scalar(ob.const[src], int(src_f), int(f),
+                                    int(i), bool(signed), mode) == c
+        elif op == "CMUL":
+            src, code = a[0], int(a[1])
+            if code == 0:
+                ok = c == 0
+            elif ob.const.get(src) is not None:
+                ok = ob.const[src] * code == c
+        elif op in ("ADD", "SUB"):
+            ca, cb = ob.const.get(a[0]), ob.const.get(a[1])
+            if ca is not None and cb is not None:
+                fa = before.instrs[a[0]].reg.f
+                fb = before.instrs[a[1]].reg.f
+                F = max(fa, fb)
+                va, vb = ca << (F - fa), cb << (F - fb)
+                ok = (va + vb if op == "ADD" else va - vb) == c
+        if not ok:
+            fail(f"constant claim const[{idx}]={c} is not justified by "
+                 f"{op} semantics")
+
+    # --- alias / shift-rewrite claims: x ± 0 collapses only -------------- #
+    for idx, target in ob.alias.items():
+        ins = before.instrs[idx]
+        if ins.op not in ("ADD", "SUB"):
+            fail(f"alias[{idx}] on a non-ADD/SUB op {ins.op}")
+        ra, rb = ins.args
+        fa, fb = before.instrs[ra].reg.f, before.instrs[rb].reg.f
+        F = max(fa, fb)
+        if ob.const.get(rb) == 0 and resolve(ra) == resolve(target):
+            shift, src = F - fa, ra
+        elif (ob.const.get(ra) == 0 and ins.op == "ADD"
+              and resolve(rb) == resolve(target)):
+            shift, src = F - fb, rb
+        else:
+            fail(f"alias[{idx}] -> {target}: neither operand is a proven "
+                 f"zero feeding that target")
+        if shift != 0:
+            fail(f"alias[{idx}] -> {target} drops a 2**{shift} alignment")
+        if before.instrs[src].reg.f != ins.reg.f:
+            fail(f"alias[{idx}] -> {target} changes the value grid "
+                 f"(f={before.instrs[src].reg.f} vs f={ins.reg.f})")
+
+    for idx, (target, code) in ob.shift_rw.items():
+        ins = before.instrs[idx]
+        if ins.op not in ("ADD", "SUB"):
+            fail(f"shift_rw[{idx}] on a non-ADD/SUB op {ins.op}")
+        ra, rb = ins.args
+        fa, fb = before.instrs[ra].reg.f, before.instrs[rb].reg.f
+        F = max(fa, fb)
+        if ob.const.get(rb) == 0 and resolve(ra) == resolve(target):
+            want = 1 << (F - fa)
+        elif ob.const.get(ra) == 0 and resolve(rb) == resolve(target):
+            want = (1 << (F - fb)) if ins.op == "ADD" else -(1 << (F - fb))
+        else:
+            fail(f"shift_rw[{idx}] -> {target}: neither operand is a "
+                 f"proven zero feeding that target")
+        if code != want:
+            fail(f"shift_rw[{idx}] claims code {code}, semantics give {want}")
+
+    # --- sliced tables: kept rows identical, dropped rows provably inert - #
+    if set(before.tables) != set(after.tables):
+        fail("rewrite added or removed table sets")
+    for lid, t0 in before.tables.items():
+        keep = np.asarray(ob.keep_rows.get(lid, np.ones(t0.c_in, bool)), bool)
+        t1 = after.tables[lid]
+        if keep.shape != (t0.c_in,) or int(keep.sum()) != t1.c_in:
+            fail(f"table {lid}: keep mask shape/count does not match the "
+                 f"sliced table")
+        kept = np.where(keep)[0]
+        if ob.row_map.get(lid, {}) != {int(j): k
+                                       for k, j in enumerate(kept)}:
+            fail(f"table {lid}: row_map is not the order-preserving "
+                 f"renumbering of the keep mask")
+        for fld in ("f_in", "i_in", "f_out", "i_out", "in_width",
+                    "out_width", "codes"):
+            if not np.array_equal(np.asarray(getattr(t0, fld))[keep],
+                                  np.asarray(getattr(t1, fld))):
+                fail(f"table {lid}: kept rows' {fld} changed")
+        for j in np.where(~keep)[0]:
+            if np.any(t0.codes[j]):
+                fail(f"table {lid}: dropped row {j} has nonzero codes — "
+                     f"its contribution is not provably zero")
+
+    # --- instruction mapping: structural correspondence ------------------ #
+    def mapped(r: int) -> int:
+        r = resolve(r)
+        if r not in ob.new_of:
+            fail(f"before-register {r} is live through the mapping but "
+                 f"has no new_of entry")
+        return ob.new_of[r]
+
+    for idx, nidx in ob.new_of.items():
+        if not 0 <= nidx < len(after.instrs):
+            fail(f"new_of[{idx}]={nidx} outside the after program")
+        ins0, ins1 = before.instrs[idx], after.instrs[nidx]
+        r0, r1 = ins0.reg, ins1.reg
+        if idx in ob.const and ins0.op != "CONST":
+            if (ins1.op != "CONST" or int(ins1.args[0]) != ob.const[idx]
+                    or r1.f != r0.f or bool(r1.signed) != bool(r0.signed)
+                    or r1.width != max(r0.width, 1)):
+                fail(f"folded const {idx} -> {nidx} does not materialize "
+                     f"CONST {ob.const[idx]} in the original format")
+            continue
+        if idx in ob.shift_rw:
+            target, code = ob.shift_rw[idx]
+            if (ins1.op != "CMUL" or int(ins1.args[1]) != code
+                    or ins1.args[0] != mapped(target)
+                    or (r1.f, r1.width, r1.signed) != (r0.f, r0.width,
+                                                       r0.signed)):
+                fail(f"shift rewrite {idx} -> {nidx} does not materialize "
+                     f"CMUL {code} of the mapped target")
+            continue
+        if ins1.op != ins0.op:
+            fail(f"mapped instr {idx} -> {nidx} changed op "
+                 f"{ins0.op} -> {ins1.op}")
+        if (r1.f, r1.width, bool(r1.signed)) != (r0.f, r0.width,
+                                                 bool(r0.signed)):
+            fail(f"mapped instr {idx} -> {nidx} changed register format")
+        args0 = list(ins0.args)
+        args1 = list(ins1.args)
+        for p in OP_DEPS[ins0.op]:
+            if args1[p] != mapped(args0[p]):
+                fail(f"mapped instr {idx} -> {nidx}: arg {p} does not "
+                     f"follow the renumbering")
+            args0[p] = args1[p]
+        if ins0.op == "LLUT":
+            lid, j = args0[1], int(ins0.args[2])
+            rm = ob.row_map.get(lid, {})
+            if j not in rm:
+                fail(f"live LLUT {idx} reads dropped row {j} of table {lid}")
+            args0[2] = rm[j]
+        if tuple(args0) != tuple(args1):
+            fail(f"mapped instr {idx} -> {nidx}: non-register args changed "
+                 f"({tuple(ins0.args)} vs {tuple(ins1.args)})")
+
+    # --- outputs and segments follow the mapping -------------------------- #
+    for k, r in enumerate(before.outputs):
+        if after.outputs[k] != mapped(r):
+            fail(f"output {k} does not follow the register mapping")
+
+    if len(before.segments) != len(after.segments):
+        fail("rewrite changed the segment count")
+    for s_idx, (s0, s1) in enumerate(zip(before.segments, after.segments)):
+        if (s0.kind, s0.layer_id, s0.site, s0.n_sites) != (
+                s1.kind, s1.layer_id, s1.site, s1.n_sites):
+            fail(f"segment {s_idx} metadata changed")
+        in_regs = s0.in_regs
+        if s0.kind == "lut" and s0.layer_id in ob.keep_rows:
+            keep = ob.keep_rows[s0.layer_id]
+            in_regs = tuple(r for j, r in enumerate(in_regs)
+                            if j < len(keep) and keep[j])
+        for label, regs0, regs1 in (("in", in_regs, s1.in_regs),
+                                    ("out", s0.out_regs, s1.out_regs)):
+            if len(regs0) != len(regs1):
+                fail(f"segment {s_idx} {label}_regs length changed")
+            for r0, r1 in zip(regs0, regs1):
+                rr = resolve(r0)
+                if rr in ob.new_of:
+                    if r1 != ob.new_of[rr]:
+                        fail(f"segment {s_idx} {label}_reg {r0} does not "
+                             f"follow the register mapping")
+                    continue
+                # dead register: the stand-in must be a CONST 0 in the
+                # dead register's full declared format
+                reg0 = before.instrs[rr].reg
+                ins1 = after.instrs[r1]
+                if (ins1.op != "CONST" or int(ins1.args[0]) != 0
+                        or ins1.reg.f != reg0.f
+                        or ins1.reg.width != max(reg0.width, 1)
+                        or bool(ins1.reg.signed) != bool(reg0.signed)):
+                    fail(f"segment {s_idx} {label}_reg {r0} died but its "
+                         f"stand-in is not a format-preserving CONST 0")

@@ -453,13 +453,16 @@ def _tree_add(prog: DaisProgram, regs: List[int], f: int) -> int:
 # registry); this wrapper keeps the reference's import path.
 # --------------------------------------------------------------------------- #
 def compile_sequential(layers: Sequence, input_f: int, input_i: int,
-                       input_signed: bool = True) -> DaisProgram:
+                       input_signed: bool = True, *,
+                       optimize: bool = False) -> DaisProgram:
     """Lower a flat list of (``LUTDense`` | ``HGQDense``) layers to DAIS.
 
     A thin wrapper over ``repro_torch.core.lower.compile_sequential``
     (imported here, at the call, because ``core/lower.py`` imports this
     module); ``core.lower.lower`` is the general entry point.
+    ``optimize=True`` additionally runs dead-cell elimination
+    (``repro_torch.core.opt``).
     """
     from repro_torch.core.lower import compile_sequential as _impl
 
-    return _impl(layers, input_f, input_i, input_signed)
+    return _impl(layers, input_f, input_i, input_signed, optimize=optimize)

@@ -20,8 +20,8 @@ emit constant-multiply trees per site.
 
 The port's layers carry their own parameters, so :func:`lower` takes the
 graph alone.  Registered: ``LUTDense``, ``LUTConv1D``, ``LUTConv2D``,
-``HGQDense``, ``HGQConv1D`` and the structural ops.  Dead-cell elimination
-(``optimize=True`` in the reference) waits with ``core/opt.py``.
+``HGQDense``, ``HGQConv1D`` and the structural ops.  ``optimize=True`` runs
+dead-cell elimination (``core/opt.py``) on the lowered program.
 """
 
 from __future__ import annotations
@@ -97,11 +97,19 @@ class _Ctx:
         return self._pads[f]
 
 
-def lower(graph: ModelGraph) -> DaisProgram:
+def lower(graph: ModelGraph, *, optimize: bool = False) -> DaisProgram:
     """Lower a :class:`ModelGraph` to a verified DAIS program.
 
     The float input is assumed pre-quantized to the input grid; each layer's
     quantizers govern all internal grids from there on.
+
+    ``optimize=True`` runs the dead-cell elimination pass
+    (:func:`repro_torch.core.opt.eliminate_dead_cells`) on the lowered
+    program: cells that β·EBOPs pruning drove to a constant truth table are
+    folded out, dead chains are compacted, and shared-table rows with no
+    live lookup are sliced from the tables and every site's gather.  The
+    pass validates its own rewrite; serving re-gates the optimized engine
+    against the unoptimized oracle (``serve/api.py``).
     """
     gi = graph.input
     prog = DaisProgram()
@@ -126,18 +134,22 @@ def lower(graph: ModelGraph) -> DaisProgram:
     prog.output_f = [prog.instrs[r].reg.f for r in prog.outputs]
     # the IR boundary gate: a broken lowering fails here with diagnostics
     verify_program(prog)
+    if optimize:
+        from repro_torch.core.opt import eliminate_dead_cells
+        prog, _report = eliminate_dead_cells(prog)
     return prog
 
 
 def compile_sequential(layers: Sequence, input_f: int, input_i: int,
-                       input_signed: bool = True) -> DaisProgram:
+                       input_signed: bool = True, *,
+                       optimize: bool = False) -> DaisProgram:
     """Lower a flat stack of ``LUTDense`` / ``HGQDense`` layers: the
-    trivial chain ModelGraph."""
+    trivial chain ModelGraph (``optimize`` as in :func:`lower`)."""
     graph = ModelGraph(
         input=GraphInput(shape=(layers[0].c_in,), f=input_f, i=input_i,
                          signed=input_signed),
         nodes=list(layers))
-    return lower(graph)
+    return lower(graph, optimize=optimize)
 
 
 # --------------------------------------------------------------------------- #

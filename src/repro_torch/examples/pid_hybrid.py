@@ -1,5 +1,5 @@
 """CEPC gas-detector PID by cluster counting (paper §V-F), port of
-``examples/pid_hybrid.py`` as far as the serve gate.
+``examples/pid_hybrid.py``.
 
 The hybrid is the paper's (``models/pid.py``): one conventional (matmul) HGQ
 conv layer projects each 20-sample ADC window to 8 features, then two
@@ -25,21 +25,26 @@ Steps:
    bias only the windows next to an lc1 input tie may move, and the gap is
    reported (the reference asserts it below 0.5, which is no bound,
    ROADMAP C12); then the test waveforms' codes served bit for bit against
-   ``DaisProgram.run``.
+   ``DaisProgram.run``;
+6. the program's Verilog written to ``--verilog`` (default:
+   ``pid_hybrid.v`` in the temporary directory) and the three-way
+   attestation: RTL simulation == DAIS interpreter == the engine on its
+   device (``verify_rtl``).
 
-The reference then serves single requests through its ``MicroBatcher``
-(ROADMAP A5), lints the program and emits and simulates Verilog (A6); those
-steps wait for their slices.
+The reference serves single requests through its ``MicroBatcher`` between
+steps 5 and 6; that step waits for the serving stack (ROADMAP A5).
 
 Run (on the card, or on the CPU with the kernels' plain versions)::
 
-    PYTHONPATH=src python -m repro_torch.examples.pid_hybrid [--device cuda|cpu] [--smoke] [--steps N] [--ctx N]
+    PYTHONPATH=src python -m repro_torch.examples.pid_hybrid [--device cuda|cpu] [--smoke] [--steps N] [--ctx N] [--verilog PATH]
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import os
+import tempfile
 import time
 from typing import Dict
 
@@ -231,6 +236,9 @@ def main(argv=None) -> Dict:
     ap.add_argument("--ctx", type=int, default=None,
                     help="context samples of the lowered program (default "
                          "100; --smoke: 60)")
+    ap.add_argument("--verilog", default=None,
+                    help="where to write the emitted Verilog (default: "
+                         "pid_hybrid.v in the temporary directory)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -242,6 +250,7 @@ def main(argv=None) -> Dict:
     from repro_torch.core.ebops import estimate_luts
     from repro_torch.core.lower import lower
     from repro_torch.core.quant import quantize_to_int
+    from repro_torch.core.rtl import emit_verilog, verify_rtl
     from repro_torch.models.pid import IN_F, IN_I, build_pid_graph, build_pid_layers
     from repro_torch.serve.api import EngineSpec, build
 
@@ -325,9 +334,24 @@ def main(argv=None) -> Dict:
     if not np.array_equal(out, prog.run(codes)):
         raise SystemExit("served batch diverged from DaisProgram.run")
     print(f"served {len(codes)} test waveforms bit-exactly on path {engine.path}")
+
+    # ------------------------------- emit Verilog + three-way attestation
+    verilog = emit_verilog(prog, name="pid_hybrid")
+    path = args.verilog or os.path.join(tempfile.gettempdir(), "pid_hybrid.v")
+    with open(path, "w") as fh:
+        fh.write(verilog)
+    print(f"emitted Verilog: {path} ({len(verilog.splitlines())} lines, "
+          f"one case-function per shared table cell)")
+    t0 = time.monotonic()
+    att = verify_rtl(prog, verilog, engine=engine,
+                     n_random=64 if args.smoke else 256)
+    print(f"RTL simulation: {att['verdict']} three ways (RTL sim == DAIS "
+          f"interpreter == {att['engine_path']} engine) over {att['random']} "
+          f"random + {att['exhaustive']} exhaustive rows ({att['n_wires']} "
+          f"wires, {time.monotonic() - t0:.1f}s)")
     return {"steps": steps, "sep": s_pred, "sep_true": s_true, "ebops": eb,
             "gap": gap, "path": engine.path, "served": len(codes),
-            "n_instrs": prog.n_instrs()}
+            "n_instrs": prog.n_instrs(), "rtl": att, "verilog": path}
 
 
 if __name__ == "__main__":

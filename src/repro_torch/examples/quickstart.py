@@ -1,4 +1,4 @@
-"""Quickstart of the port: the paper's Fig. 1 flow on one device, RTL excepted.
+"""Quickstart of the port: the paper's Fig. 1 flow on one device.
 
 1. build the JSC-HLF LUT-Dense classifier (16 -> 20 with batch-norm -> 5,
    hidden 8) from a seeded generator;
@@ -9,16 +9,21 @@
    ``DaisProgram.run_float`` exactly;
 5. build the serving engine (``engine="pallas"``, kernel B4 on the card)
    behind the bit-exact gate and serve the test set's input codes, each
-   batch checked against ``DaisProgram.run``.
+   batch checked against ``DaisProgram.run``;
+6. lint the program (``launch/lint.py``), write its Verilog to
+   ``--verilog`` (default: ``hgq_lut_model.v`` in the temporary directory)
+   and simulate it against the interpreter and the engine (``verify_rtl``).
 
 Run (on the card, or on the CPU with the kernels' plain versions)::
 
-    PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cuda|cpu] [--smoke] [--steps N]
+    PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cuda|cpu] [--smoke] [--steps N] [--verilog PATH]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +44,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=None,
                     help="override the training step count")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verilog", default=None,
+                    help="where to write the emitted Verilog (default: "
+                         "hgq_lut_model.v in the temporary directory)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -50,6 +58,8 @@ def main(argv=None) -> dict:
     from repro_torch.core.ebops import BetaSchedule, estimate_luts
     from repro_torch.core.lower import compile_sequential
     from repro_torch.core.quant import int_to_float, quantize_to_int
+    from repro_torch.core.rtl import emit_verilog, verify_rtl
+    from repro_torch.launch.lint import lint_program
     from repro_torch.data.synthetic import jsc_hlf
     from repro_torch.launch.serve import build_lut_stack
     from repro_torch.optim.adam import AdamConfig, cosine_restarts
@@ -134,8 +144,26 @@ def main(argv=None) -> dict:
             raise SystemExit("served batch diverged from DaisProgram.run")
         served += len(codes)
     print(f"served {served} test rows bit-exactly in {-(-n_test // batch)} batches")
+
+    # ------------------------------- static lint, Verilog, RTL simulation
+    # the proven widths drive engine dtype selection and B4's lane narrowing
+    lint = lint_program(prog, name="quickstart model")
+    verilog = emit_verilog(prog)
+    path = args.verilog or os.path.join(tempfile.gettempdir(), "hgq_lut_model.v")
+    with open(path, "w") as fh:
+        fh.write(verilog)
+    print(f"emitted Verilog: {path} ({len(verilog.splitlines())} lines)")
+    t0 = time.monotonic()
+    att = verify_rtl(prog, verilog, engine=engine,
+                     n_random=128 if args.smoke else 512)
+    print(f"RTL simulation: {att['verdict']} three ways (RTL sim == DAIS "
+          f"interpreter == {att['engine_path']} engine) over {att['random']} "
+          f"random + {att['exhaustive']} exhaustive rows ({att['n_wires']} "
+          f"wires, sha256 {att['verilog_sha256'][:12]}, "
+          f"{time.monotonic() - t0:.1f}s)")
     return {"acc": acc, "ebops": eb, "exact": exact, "served": served,
-            "path": engine.path, "steps": steps}
+            "path": engine.path, "steps": steps, "lint": lint, "rtl": att,
+            "verilog": path}
 
 
 if __name__ == "__main__":

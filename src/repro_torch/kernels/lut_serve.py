@@ -10,19 +10,27 @@ the same program to a serving engine on the device:
   one launch;
 * **the fused path** (``engine="fused"``): every layer is one
   :class:`FusedStage` run as per-site gather → requant → batched table
-  gather → Σ → epilogue in PyTorch integer ops.
+  gather → Σ → epilogue in PyTorch integer ops;
+* **the generic op-group path** (``engine="groups"``, and anything the
+  composer rejects: non-chain dataflow, un-enumerable operand widths, a
+  one-window pid context): ``DaisProgram.schedule()`` levelizes the SSA
+  program into :class:`~repro_torch.core.dais.OpGroup` s and each group
+  becomes a handful of PyTorch integer ops over ``(B, n_group)`` values —
+  LLUT a flat table gather with the WRAP index, REQUANT the column-parallel
+  ``_requant_cols``, ADD/SUB/CMUL/CONST exact integer arithmetic.  Its op
+  count scales with program depth, so a batch is host-bound at a few ops a
+  group; it runs no custom kernel (the reference's is plain ``jnp`` too).
 
-A packed chain that cannot pack degrades to the fused path with an
-:class:`EnginePathWarning`, as in the reference.  The reference's generic
-op-group runner (for programs the composer rejects) is not ported yet: where
-the reference would degrade to it, :func:`compile_program` raises
-:class:`EngineRequirementError`.
+Unavailable preferences degrade ``pallas → fused → generic``, each
+downgrade named by an :class:`EnginePathWarning` and kept on
+``ServeEngine.fuse_reason``, as in the reference.  :func:`lower_tables` is
+the single-layer gather engine (one ``LayerTables`` on its own).
 
 Values are int32 when the static range analysis (``core/analysis.py``)
 proves every value the engine materializes fits 30 bits (the proven
 :func:`engine_width`, or the conservative ``required_width()`` when the
-analysis is unavailable), else int64.  :func:`verify_engine` is the
-bit-exactness gate against ``DaisProgram.run``.
+analysis is unavailable or ``narrow=False``), else int64.
+:func:`verify_engine` is the bit-exactness gate against ``DaisProgram.run``.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ import torch
 
 from repro_torch.core.analysis import (_round_half_even, analyze_ranges,
                                        index_window)
-from repro_torch.core.dais import DaisProgram, _requant
+from repro_torch.core.dais import DaisProgram, OpGroup, _requant
+from repro_torch.core.tables import LayerTables
 
 logger = logging.getLogger(__name__)
 
@@ -60,6 +69,11 @@ def _check_dtype(dtype: torch.dtype, width: int) -> None:
             f"program has {width}-bit registers/transients but the requested "
             f"engine dtype int32 covers <= {_INT32_MAX_WIDTH} bits — values "
             f"would overflow-wrap; pass dtype=None or torch.int64")
+
+
+def _device_ints(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    """An integer constant array as a ``dtype`` tensor on ``device``."""
+    return torch.as_tensor(np.asarray(arr, np.int64), device=device).to(dtype)
 
 
 def _ranges(prog: DaisProgram):
@@ -85,7 +99,7 @@ class EnginePathWarning(UserWarning):
 
 
 class EngineRequirementError(RuntimeError):
-    """An engine could not be built on the required (or any ported) path."""
+    """A ``require=`` spec was not met (engine compiled on a lower path)."""
 
 
 # --------------------------------------------------------------------------- #
@@ -133,14 +147,16 @@ class ServeEngine:
 
     n_inputs: int
     n_outputs: int
-    n_groups: int               # stages (fused) or packed stages (pallas)
+    n_groups: int               # op groups (generic), stages (fused) or
+                                # packed stages (pallas)
     dtype: torch.dtype
     device: torch.device
-    path: str                   # "pallas" | "fused"
+    path: str                   # "pallas" | "fused" | "generic"
     fuse_reason: str            # downgrade reason(s); "" when preferred ran
     output_f: List[int]
     _runner: Callable
-    n_launches: int = 0         # launches per batch (pallas: 1)
+    n_launches: int = 0         # launches per batch (pallas: 1; fused /
+                                # generic: one op bundle per stage / group)
     packed_table_bytes: int = 0  # lane-packed table bytes ("pallas" only)
 
     def run(self, x_codes) -> torch.Tensor:
@@ -157,20 +173,30 @@ class ServeEngine:
 
 def compile_program(prog: DaisProgram, *, device="cuda",
                     dtype: Optional[torch.dtype] = None,
-                    engine: str = "fused") -> ServeEngine:
+                    engine: Optional[str] = "fused",
+                    narrow: bool = True) -> ServeEngine:
     """Lower a DAIS program to a serving engine on ``device``.
 
     ``engine``: ``"pallas"`` prefers the packed chain of kernel B4 (one
-    launch per batch) and degrades to ``"fused"`` with an
-    :class:`EnginePathWarning` when the chain cannot pack; ``"fused"`` runs
-    the composed stages in PyTorch integer ops.  A program the composer
-    rejects raises :class:`EngineRequirementError`: the generic runner that
-    the reference falls back to is not ported yet.
+    launch per batch), ``"fused"`` (or ``None``) the composed stages in
+    PyTorch integer ops, ``"groups"`` forces the generic op-group runner.
+    Unavailable preferences degrade ``pallas -> fused -> generic``; every
+    downgrade raises an :class:`EnginePathWarning`, is logged, and is kept
+    on ``ServeEngine.fuse_reason``, with the chosen lowering on
+    ``ServeEngine.path``.
+
+    ``narrow``: run the static interval analysis (``core/analysis.py``) to
+    size the engine dtype from the proven :func:`engine_width` bound and
+    hand the chain packer per-stage ``live`` entry masks that shrink table
+    lanes.  ``narrow=False`` sizes the dtype from ``required_width()`` and
+    packs full rows: the baseline of the reference's lane-narrowing rows.
     """
-    if engine not in ("pallas", "fused"):
-        raise ValueError(f"unknown engine {engine!r} (choices: pallas, fused)")
+    want = "fused" if engine is None else engine
+    if want not in ("pallas", "fused", "groups"):
+        raise ValueError(
+            f"unknown engine {want!r} (choices: pallas, fused, groups)")
     device = torch.device(device)
-    ranges = _ranges(prog)
+    ranges = _ranges(prog) if narrow else None
     # engine_width/required_width cover transient pre-clamp REQUANT /
     # pre-add align values, which can exceed every declared register width
     width_bound = (ranges.engine_width() if ranges is not None
@@ -180,25 +206,31 @@ def compile_program(prog: DaisProgram, *, device="cuda",
     else:
         _check_dtype(dtype, width_bound)
 
-    stages, reason = compose_fused_stages(prog, ranges=ranges)
-    if stages is None:
-        raise EngineRequirementError(
-            f"the fused path is unavailable ({reason}) and the generic "
-            f"op-group runner is not ported yet")
-    run, downgrades = None, []
+    run, stages, reason = None, None, ""
+    downgrades: List[str] = []
     packed_bytes = 0
-    if engine == "pallas":
-        from repro_torch.kernels import lut_serve_cuda as _chain
-        try:
-            packed = _chain.pack_stages(stages, dtype)
-            run = _chain.chain_runner(packed, dtype, device)
-            path, n_groups, n_launches = "pallas", packed.n_stages(), 1
-            packed_bytes = packed.table_bytes()
-        except _chain.PackError as e:
-            downgrades.append(f"pallas unavailable: {e}")
-    if run is None:
+    if want in ("pallas", "fused"):
+        stages, reason = compose_fused_stages(prog, ranges=ranges)
+    if want == "pallas":
+        if stages is None:
+            downgrades.append(f"pallas (and fused) unavailable: {reason}")
+        else:
+            from repro_torch.kernels import lut_serve_cuda as _chain
+            try:
+                packed = _chain.pack_stages(stages, dtype)
+                run = _chain.chain_runner(packed, dtype, device)
+                path, n_groups, n_launches = "pallas", packed.n_stages(), 1
+                packed_bytes = packed.table_bytes()
+            except _chain.PackError as e:
+                downgrades.append(f"pallas unavailable: {e}")
+    if run is None and stages is not None:
         run, path = _fused_runner(stages, dtype, device), "fused"
         n_groups = n_launches = stages.n_stages()
+    elif run is None and want == "fused":
+        downgrades.append(f"fused unavailable: {reason}")
+    if run is None:
+        run, n_groups = _group_runner(prog, dtype, device)
+        path, n_launches = "generic", n_groups
     if downgrades:
         msg = f"engine path downgraded to {path!r}: " + "; ".join(downgrades)
         warnings.warn(EnginePathWarning(msg), stacklevel=2)
@@ -209,6 +241,126 @@ def compile_program(prog: DaisProgram, *, device="cuda",
         n_groups=n_groups, dtype=dtype, device=device, path=path,
         fuse_reason="; ".join(downgrades), output_f=list(prog.output_f),
         _runner=run, n_launches=n_launches, packed_table_bytes=packed_bytes)
+
+
+# --------------------------------------------------------------------------- #
+# generic path: one op bundle per scheduled OpGroup
+# --------------------------------------------------------------------------- #
+def _group_runner(prog: DaisProgram, dtype: torch.dtype, device):
+    """Generic lowering: one vectorized op bundle per scheduled OpGroup.
+
+    Each group's result stays its own ``(B, n_group)`` tensor; a consuming
+    group gathers its arguments from the concatenation of just the source
+    groups it references (usually one or two — the level structure keeps
+    fan-in local), so there is no global register matrix to recopy.
+    """
+    groups = prog.schedule()
+    group_of = np.full(len(prog.instrs), -1, np.int64)
+    col_in_group = np.full(len(prog.instrs), -1, np.int64)
+    for gi, g in enumerate(groups):
+        for c, r in enumerate(g.regs):
+            group_of[r] = gi
+            col_in_group[r] = c
+    sizes = [len(g.regs) for g in groups]
+
+    def locate(regs):
+        """Source-group set + local columns of ``regs`` within their concat;
+        the columns are an int64 tensor made once on ``device``."""
+        srcs = sorted({int(group_of[r]) for r in regs})
+        off, acc = {}, 0
+        for s in srcs:
+            off[s] = acc
+            acc += sizes[s]
+        cols = np.asarray([off[int(group_of[r])] + int(col_in_group[r])
+                           for r in regs], np.int64)
+        return srcs, torch.as_tensor(cols, device=device)
+
+    prepared = [_prepare_group(prog, g, locate, dtype, device) for g in groups]
+    out_srcs, out_cols = locate(prog.outputs)
+
+    def _assemble(results, srcs):
+        if len(srcs) == 1:
+            return results[srcs[0]]
+        return torch.cat([results[s] for s in srcs], 1)
+
+    def run(x):
+        results = []
+        for srcs, ex in prepared:
+            results.append(ex(_assemble(results, srcs) if srcs else None, x))
+        return _assemble(results, out_srcs)[:, out_cols]
+    return run, len(groups)
+
+
+def _prepare_group(prog: DaisProgram, g: OpGroup, locate, dtype: torch.dtype,
+                   device):
+    """Close a single OpGroup over its device constants.
+
+    Returns ``(srcs, ex)``: ``srcs`` are the indices of the earlier groups
+    this one reads from, and ``ex(base, x) -> (B, n)`` computes the group
+    from ``base`` — the (B, Σ sizes) concatenation of those groups' results
+    — and the (B, n_inputs) input codes ``x``.  No ``ex`` writes into its
+    inputs: a CONST group's result is an expanded view.
+    """
+    a = g.args
+
+    def dev(arr):
+        return _device_ints(arr, dtype, device)
+
+    if g.op == "IN":
+        ks = torch.as_tensor(np.asarray(a["k"], np.int64), device=device)
+        return [], lambda base, x: x[:, ks]
+
+    if g.op == "CONST":
+        cs = dev(a["c"])
+        return [], lambda base, x: cs[None].expand(x.shape[0], -1)
+
+    if g.op == "REQUANT":
+        srcs, src = locate(a["src"])
+        shift = dev(a["f"] - a["src_f"])
+        width = dev(a["f"] + a["i"] + a["signed"])
+        signed = torch.as_tensor(np.asarray(a["signed"]) != 0, device=device)
+        mode = g.mode
+        return srcs, lambda base, x: _requant_cols(base[:, src], shift, width,
+                                                   signed, mode)
+
+    if g.op == "LLUT":
+        srcs, src = locate(a["src"])
+        n = len(src)
+        sizes_np = np.empty(n, np.int64)
+        rows = []
+        for col in range(n):
+            t = prog.tables[int(a["layer"][col])]
+            j, i = int(a["j"][col]), int(a["i"][col])
+            sizes_np[col] = t.entry_sizes()[j, i]
+            rows.append(np.asarray(t.codes[j, i], np.int64))
+        e_max = int(sizes_np.max())
+        table = np.zeros((n, e_max), np.int64)
+        for col, row in enumerate(rows):
+            table[col, :min(len(row), e_max)] = row[:e_max]
+        table_d = dev(table).reshape(-1)
+        masks = dev(sizes_np - 1)
+        # row offsets into the flattened (n, e_max) table, int64 on device
+        row_off = torch.arange(n, device=device, dtype=torch.int64) * e_max
+
+        def ex(base, x):
+            # WRAP contract (tables.py): idx = code mod 2**m == code & (2**m-1)
+            idx = base[:, src] & masks
+            return table_d[idx.long() + row_off]
+        return srcs, ex
+
+    if g.op == "CMUL":
+        srcs, src = locate(a["src"])
+        codes = dev(a["code"])
+        return srcs, lambda base, x: base[:, src] * codes[None]
+
+    # ADD / SUB — locate both operand sets against one shared base
+    n = len(a["a"])
+    srcs, cols = locate(list(a["a"]) + list(a["b"]))
+    ca, cb = cols[:n], cols[n:]
+    sa, sb = dev(a["shift_a"]), dev(a["shift_b"])
+    if g.op == "ADD":
+        return srcs, lambda base, x: (base[:, ca] << sa) + (base[:, cb] << sb)
+    return srcs, lambda base, x: (base[:, ca] << sa) - (base[:, cb] << sb)
 
 
 # --------------------------------------------------------------------------- #
@@ -731,7 +883,7 @@ def compose_fused_stages(prog: DaisProgram, *,
 def _prepare_stage(stage: FusedStage, dtype: torch.dtype, device):
     """Close one FusedStage over device constants -> (B, n_cols) -> (B, S*co)."""
     def dev(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device).to(dtype)
+        return _device_ints(a, dtype, device)
 
     gather = torch.as_tensor(np.asarray(stage.gather, np.int64), device=device)
     bias = dev(stage.bias)[None]                            # (1, S, co)
@@ -789,6 +941,52 @@ def _fused_runner(stages: FusedStages, dtype: torch.dtype, device):
             v = ex(v)
         return v[:, out_cols]
     return run
+
+
+# --------------------------------------------------------------------------- #
+# single-layer engine: port of LayerTables.lookup_codes
+# --------------------------------------------------------------------------- #
+def lower_tables(t: LayerTables, x_f, x_width: int = 16, *,
+                 device="cuda") -> Callable:
+    """Batched gather evaluating one layer's truth tables on ``device``.
+
+    Returns ``fn(x_codes) -> out_codes`` bit-exact against
+    ``t.lookup_codes(x_codes, x_f)``: (B, C_in) codes on the ``x_f`` grid in,
+    (B, C_out) codes on the ``t.common_f_out()`` grid out.  ``x_width`` is
+    the physical width of the input codes (bounds the internal dtype).
+    """
+    ci, co = t.c_in, t.c_out
+    device = torch.device(device)
+    # (in_shift, mask, out_shift) incl. the pruned-cell out-shift clamp:
+    # one derivation, shared with the fused stage composer
+    shift, masks_np, out_shift_np = t.gather_params(x_f)    # (ci, co) each
+
+    width_bound = max(
+        int(x_width + max(shift.max(), 0)) + 1,
+        int((np.maximum(t.out_width, 1) + out_shift_np).max())
+        + int(np.ceil(np.log2(max(ci, 1)))) + 1)
+    dtype = _pick_dtype(width_bound)
+
+    def dev(arr):
+        return _device_ints(arr, dtype, device)
+
+    e = t.codes.shape[2]
+    codes_d = dev(t.codes).reshape(-1)
+    sh = dev(shift)[None]                                   # (1, ci, co)
+    masks = dev(masks_np)[None]
+    out_shift = dev(out_shift_np)[None]
+    # (ci, co) offsets of each cell's row in the flattened (ci, co, E) table
+    cell_off = torch.arange(ci * co, device=device,
+                            dtype=torch.int64).reshape(ci, co) * e
+
+    def fn(x_codes):
+        v = torch.as_tensor(x_codes, device=device).to(dtype)[..., :, None]
+        # integer round-half-to-even requant onto each cell's f_in grid
+        code = _shift_round(v, sh)                          # (B, ci, co)
+        idx = code & masks              # the WRAP contract (grids are 2**m)
+        out = codes_d[idx.long() + cell_off]
+        return (out << out_shift).sum(dim=-2, dtype=dtype)
+    return fn
 
 
 # --------------------------------------------------------------------------- #

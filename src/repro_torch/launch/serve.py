@@ -10,14 +10,21 @@ is served ``--gen`` times and checked against ``DaisProgram.run``.
 (``models/pid.py``: HGQ conv front, two LUT convs, LUT head, window sum),
 untrained from ``--seed``, lowered over a ``--ctx``-sample waveform context
 (a multiple of the 20-sample DAQ window).  At one window (``--ctx 20``) the
-program does not compose into fused stages and the generic runner that the
-reference serves it on is not ported yet: the launcher exits with the
-``EngineRequirementError``.
+program does not compose into fused stages, and it serves on the generic
+op-group runner, as in the reference.
 
 ``--engine pallas`` prefers the one-launch packed chain (kernel B4); a chain
-that cannot pack degrades to the fused path with an ``EnginePathWarning``,
-and ``--require-pallas`` turns that into a hard exit.  ``--engine tables``
-serves on the fused path.
+that cannot pack degrades to the fused path, and a program that does not
+compose to the generic one, each with an ``EnginePathWarning`` (its reason
+is printed too); ``--require-pallas`` turns that into a hard exit.
+``--engine tables`` prefers the fused path.
+
+``--dce`` runs dead-cell elimination (``core/opt.py``) before compiling and
+gates the optimized engine against the unoptimized interpreter; ``--lint``
+prints the static-analysis report (``launch/lint.py``) of the lowered
+program; ``--verify-rtl`` emits the served program's Verilog, simulates it
+(``core/rtl_sim.py``) and asserts RTL == interpreter == engine on the
+gate's rows.
 
 Float32 matmuls and convolutions are held to full precision: TF32 is
 switched off for both, so no path rounds through TF32.
@@ -27,7 +34,7 @@ Usage (the paper's JSC-HLF model at its real widths)::
     PYTHONPATH=src python -m repro_torch.launch.serve --engine pallas \\
         --lut-dims 16,20,5 --lut-hidden 8 --batch 16600 --gen 8
     PYTHONPATH=src python -m repro_torch.launch.serve --engine pallas \\
-        --model pid-hybrid --ctx 100 --batch 1024
+        --model pid-hybrid --ctx 100 --batch 1024 --dce --lint --verify-rtl
 """
 
 from __future__ import annotations
@@ -102,6 +109,16 @@ def main(argv=None) -> None:
     ap.add_argument("--require-pallas", action="store_true",
                     help="imply --engine pallas and exit unless the packed "
                          "chain actually compiled")
+    ap.add_argument("--dce", action="store_true",
+                    help="run dead-cell elimination (core/opt.py) before "
+                         "compiling; the gate then checks the optimized "
+                         "engine against the UNoptimized interpreter")
+    ap.add_argument("--lint", action="store_true",
+                    help="print the static-analysis report (launch/lint.py) "
+                         "of the lowered program before serving it")
+    ap.add_argument("--verify-rtl", action="store_true",
+                    help="emit the served program's Verilog, simulate it and "
+                         "assert RTL == interpreter == engine")
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,15 +135,23 @@ def main(argv=None) -> None:
     t0 = time.monotonic()
     prog, what = build_model_program(args, device)
     t_lower = time.monotonic() - t0
+    if args.lint:
+        from repro_torch.launch.lint import lint_program
+        lint_program(prog, name=what)
 
     spec = EngineSpec(engine="pallas" if args.engine == "pallas" else "fused",
                       require="pallas" if args.require_pallas else None,
-                      verify="full", n_random=2048, seed=args.seed)
+                      optimize=args.dce, verify="full",
+                      verify_rtl=args.verify_rtl, n_random=2048, seed=args.seed)
     try:
         built = build(prog, spec, device=device)
     except EngineRequirementError as e:
         raise SystemExit(str(e))
-    engine, gate = built.engine, built.attestation
+    engine, gate, prog = built.engine, built.attestation, built.prog
+    if args.dce:
+        print(f"[serve] dce: {built.timings['dce_summary']}")
+    if engine.fuse_reason:
+        print(f"[serve] path downgraded to {engine.path!r}: {engine.fuse_reason}")
     pk = (f" launches={engine.n_launches} "
           f"packed_table_bytes={engine.packed_table_bytes}"
           if engine.path == "pallas" else "")
@@ -137,6 +162,13 @@ def main(argv=None) -> None:
     print(f"[serve] bit-exact gate PASSED: {gate['random']} random + "
           f"{gate['exhaustive']} exhaustive rows vs DaisProgram.run "
           f"(lower {t_lower:.2f}s, gate {built.timings['gate_s']:.2f}s)")
+    if args.verify_rtl:
+        rtl = gate["rtl"]
+        print(f"[serve] rtl gate PASSED: {rtl['verdict']} three ways (RTL sim "
+              f"== DAIS interpreter == {rtl['engine_path']} engine) over "
+              f"{rtl['random']} random + {rtl['exhaustive']} exhaustive rows "
+              f"({rtl['n_wires']} wires, verilog sha256 "
+              f"{rtl['verilog_sha256'][:12]}, {built.timings['rtl_s']:.2f}s)")
 
     lo, hi = input_code_bounds(prog)
     rng = np.random.default_rng(args.seed)
@@ -152,7 +184,7 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.monotonic() - t0
-    ref = prog.run(codes)
+    ref = built.oracle.run(codes)
     if not np.array_equal(out.cpu().numpy().astype(np.int64), ref):
         raise SystemExit("[serve] engine output diverged from DaisProgram.run")
     print(f"[serve] {n_batches} batches x {args.batch} rows: "

@@ -669,3 +669,78 @@ def test_b4_on_the_pid_chain_matches_plain(device, ctx, b):
     rows = x[:64].cpu().numpy().astype(np.int64)
     np.testing.assert_array_equal(got[:64].cpu().numpy().astype(np.int64), prog.run(rows))
     assert chip_smoke.b4_graph_replay(chain, x)
+
+
+# ------------------------------------------- generic runner, DCE, RTL, narrow
+def _jsc_program(device):
+    from repro_torch.core.lower import compile_sequential
+    from repro_torch.launch.serve import build_lut_stack
+
+    layers = build_lut_stack([16, 20, 5], 8, device=device,
+                             generator=torch.Generator().manual_seed(0))
+    for layer in layers:
+        layer.eval()
+    return compile_sequential(layers, 4, 2)
+
+
+def _in_range(prog, b, seed):
+    from repro_torch.kernels.lut_serve import input_code_bounds
+
+    lo, hi = input_code_bounds(prog)
+    return np.random.default_rng(seed).integers(lo, hi + 1, (b, len(lo)))
+
+
+@pytest.mark.parametrize("b", [1, 1024, 16600])
+def test_generic_runner_on_card_matches_interpreter(device, b):
+    """The generic op-group runner on the card: its outputs stay on the
+    card, equal bit for bit to ``DaisProgram.run``, and it launches no B4."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_serve import compile_program
+
+    prog = _jsc_program(device)
+    eng = compile_program(prog, device=device, engine="groups")
+    codes = _in_range(prog, b, seed=b)
+    before = ops.launch_counts()["lut_serve"]
+    out = eng.run(codes)
+    torch.cuda.synchronize()
+    assert eng.path == "generic" and out.device.type == "cuda"
+    assert ops.launch_counts()["lut_serve"] == before
+    np.testing.assert_array_equal(out.cpu().numpy().astype(np.int64), prog.run(codes))
+
+
+def test_one_window_pid_serves_generic_on_card(device):
+    from repro_torch.core.lower import lower
+    from repro_torch.models.pid import build_pid_graph, build_pid_layers
+    from repro_torch.serve.api import EngineSpec, build
+
+    layers = build_pid_layers(device=device, generator=torch.Generator().manual_seed(0))
+    prog = lower(build_pid_graph(layers, n_samples=20))
+    with pytest.warns(UserWarning, match="downgraded to 'generic'"):
+        built = build(prog, EngineSpec(engine="pallas", n_random=1024), device=device)
+    codes = _in_range(prog, 1024, seed=2)
+    out = built.engine.run(codes)
+    assert out.device.type == "cuda"
+    np.testing.assert_array_equal(out.cpu().numpy().astype(np.int64), prog.run(codes))
+
+
+@pytest.mark.parametrize("narrow", [True, False])
+def test_dce_program_through_b4_and_rtl_on_card(device, narrow):
+    """A DCE'd program served through B4 in one launch a batch, gated
+    against the unoptimized oracle, and attested three ways with the engine
+    on the card."""
+    from repro_torch.core.rtl import verify_rtl
+    from repro_torch.kernels import ops
+    from repro_torch.serve.api import EngineSpec, build
+
+    prog = _jsc_program(device)
+    built = build(prog, EngineSpec(engine="pallas", require="pallas", optimize=True,
+                                   narrow=narrow, n_random=1024), device=device)
+    assert built.oracle is prog and built.engine.path == "pallas"
+    codes = _in_range(prog, 16600, seed=3)
+    before = ops.launch_counts()["lut_serve"]
+    out = built.engine.run(codes)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lut_serve"] == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy().astype(np.int64), prog.run(codes))
+    att = verify_rtl(built.prog, oracle=prog, engine=built.engine, n_random=256)
+    assert att["verdict"] == "bit-exact" and att["engine_path"] == "pallas"

@@ -394,19 +394,40 @@ def test_eval_forward_against_the_program_c12(lowered):
 
 
 def test_one_window_context_raises_c4():
-    """ROADMAP C4: at one window the program does not compose into fused
-    stages; the reference serves it on its generic runner, which the port
-    has not ported, so the port raises."""
+    """ROADMAP C4, repaired: at one window the program does not compose into
+    fused stages; the port degrades to its generic runner, as the reference
+    does, with the warning, and serves it bit-exactly; only ``require=
+    "fused"`` still raises."""
+    from repro.kernels.lut_serve import compile_program as ref_compile
+
     layers = _port_layers(_ref_params(0)[1])
     prog = port_lower.lower(pid.build_pid_graph(layers, n_samples=20))
     with pytest.raises(EngineRequirementError, match="ADD nested inside a unary chain"):
         build(prog, EngineSpec(engine="pallas", require="fused"), device="cpu")
+    with pytest.warns(UserWarning, match="downgraded to 'generic'"):
+        built = build(prog, EngineSpec(engine="pallas", n_random=512), device="cpu")
+    eng = built.engine
+    assert eng.path == "generic" and "ADD nested inside a unary chain" in eng.fuse_reason
+    ref = RefDaisProgram.from_arrays(prog.to_arrays())
+    with pytest.warns(UserWarning, match="downgraded to 'generic'"):
+        ref_eng = ref_compile(ref, engine="pallas")
+    assert ref_eng.path == "generic" and ref_eng.fuse_reason == eng.fuse_reason
+    assert ref_eng.n_groups == eng.n_groups
+    lo, hi = input_code_bounds(prog)
+    codes = np.random.default_rng(4).integers(lo, hi + 1, (256, len(lo)))
+    got = eng.run(codes).numpy().astype(np.int64)
+    np.testing.assert_array_equal(got, ref.run(codes))
+    np.testing.assert_array_equal(got, np.asarray(ref_eng.run(codes), np.int64))
 
 
 # ------------------------------------------------------ example, launcher
-def test_example_smoke_runs_to_the_gate(capsys):
-    out = pid_hybrid.main(["--device", "cpu", "--smoke", "--steps", "3"])
+def test_example_smoke_runs_to_the_gate(capsys, tmp_path):
+    verilog = tmp_path / "pid.v"
+    out = pid_hybrid.main(["--device", "cpu", "--smoke", "--steps", "3",
+                           "--verilog", str(verilog)])
     assert out["steps"] == 3 and out["path"] == "pallas" and out["served"] == 48
+    assert out["rtl"]["verdict"] == "bit-exact" and out["rtl"]["engine_path"] == "pallas"
+    assert verilog.read_text().startswith("module pid_hybrid")
     assert np.isfinite(out["gap"]["dq"]) and np.isfinite(out["sep"])
     assert out["gap"]["n_dq"] <= out["gap"]["n_tie"]
     text = capsys.readouterr().out
@@ -420,14 +441,15 @@ def test_launcher_pid_hybrid(capsys, ctx):
 
     argv = ["--device", "cpu", "--engine", "pallas", "--model", "pid-hybrid",
             "--ctx", str(ctx), "--lut-hidden", "4", "--batch", "64", "--gen", "2"]
-    if ctx == 40:
+    if ctx != 30:
         main(argv)
         out = capsys.readouterr().out
-        assert "model=pid-hybrid ctx=40" in out and "path=pallas" in out
+        path = "pallas" if ctx == 40 else "generic"      # ctx 20: C4, repaired
+        assert f"model=pid-hybrid ctx={ctx}" in out and f"path={path}" in out
         assert "bit-exact gate PASSED: 2048 random" in out
+        assert ("[serve] path downgraded to 'generic': pallas (and fused) "
+                "unavailable: ADD nested inside a unary chain" in out) == (ctx == 20)
         return
     with pytest.raises(SystemExit) as e:
         main(argv)
-    want = ("context length 30 is not a multiple of the 20-sample DAQ window"
-            if ctx == 30 else "generic op-group runner is not ported yet")
-    assert want in str(e.value)
+    assert "context length 30 is not a multiple of the 20-sample DAQ window" in str(e.value)

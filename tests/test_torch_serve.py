@@ -7,7 +7,8 @@
 * The plain B4 runner, given the reference's own packed pid-hybrid chain
   (lowered and packed by the JAX package, carried as numpy), matches the
   reference interpreter — sum stages, relu epilogues and the zero column.
-* Path downgrades warn (``EnginePathWarning``), ``require=`` turns them into
+* Path downgrades warn (``EnginePathWarning``), down to the generic runner
+  for a program without segments; ``require=`` turns them into
   ``EngineRequirementError``, and the launcher runs end to end.
 """
 
@@ -182,13 +183,19 @@ def test_gate_catches_a_wrong_engine(jsc):
 
 
 def test_unported_paths_and_dtypes_raise(jsc):
-    prog, _ref = jsc
+    """The flat program (no segments) now serves on the generic runner with
+    its warning, as the reference's does; the dtype checks stay."""
+    prog, ref = jsc
     flat = DaisProgram.from_arrays(prog.to_arrays())
     flat.segments = []                       # the reference's generic path
-    with pytest.raises(EngineRequirementError, match="not ported"):
-        compile_program(flat, device="cpu", engine="fused")
-    with pytest.raises(ValueError):
-        compile_program(prog, device="cpu", engine="groups")
+    with pytest.warns(EnginePathWarning, match="fused unavailable: program has no "
+                                               "segment metadata"):
+        eng = compile_program(flat, device="cpu", engine="fused")
+    assert eng.path == "generic" and eng.n_groups == len(flat.schedule())
+    codes = _codes(prog, 512, seed=9)
+    np.testing.assert_array_equal(eng.run(codes).numpy().astype(np.int64), ref.run(codes))
+    with pytest.raises(ValueError, match="unknown engine"):
+        compile_program(prog, device="cpu", engine="tables")
     with pytest.raises(ValueError, match="overflow"):
         _check_dtype(torch.int32, 31)
     _check_dtype(torch.int64, 40)

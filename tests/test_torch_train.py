@@ -457,10 +457,16 @@ def test_interop_round_trip_stack_and_opt_state():
 
 
 # ---------------------------------------------------------------- quickstart
-def test_quickstart_smoke_runs_to_the_end_on_cpu(capsys):
+def test_quickstart_smoke_runs_to_the_end_on_cpu(capsys, tmp_path):
     from repro_torch.examples import quickstart
 
-    out = quickstart.main(["--device", "cpu", "--smoke", "--steps", "3"])
+    verilog = tmp_path / "model.v"
+    out = quickstart.main(["--device", "cpu", "--smoke", "--steps", "3",
+                           "--verilog", str(verilog)])
     assert out["exact"] == 0.0 and out["steps"] == 3
     assert out["path"] == "pallas" and out["served"] == 500
-    assert "BIT-EXACT" in capsys.readouterr().out
+    assert out["lint"]["ok"] and out["lint"]["dce_validated"]
+    assert out["rtl"]["verdict"] == "bit-exact" and out["rtl"]["engine_path"] == "pallas"
+    assert verilog.read_text().startswith("module hgq_lut_model")
+    text = capsys.readouterr().out
+    assert "BIT-EXACT" in text and "RTL simulation: bit-exact three ways" in text
