@@ -104,7 +104,25 @@ line:
    device kernels a call from a profiler trace, the CUDA-event span and the
    host ms a batch: the generic runner's first card numbers, written down,
    not tuned;
-12. seeded packed chains covering what JSC-HLF does not, kernel B4 against
+12. the serving stack (``serve/``) on the models phases 8 and 10 trained,
+   the JSC-HLF program and the pid hybrid at ctx 100: each saved as a bundle
+   (``save_artifact``), cold-started from it on the card
+   (``build(path, EngineSpec(engine="pallas", require="pallas"))``, with
+   ``verify="cached"`` and ``"full"``; the content hash the one saved; the
+   cold start printed beside the fresh build's compose, pack, compile and
+   gate times) and a copy with one table byte flipped refused; B4 from each
+   bundle's stored packed payload at every bucket 1..64 bit for bit its
+   plain version; ``compare_under_load`` (engine vs interpreter behind one
+   ``MicroBatcher``, every response bit-exact) for JSC at a burst and at
+   2000 req/s (1024 requests, ``max_batch=64``, ``max_delay_ms=2``) and for
+   pid at a burst (256 requests); ``serve()`` of both bundles on a
+   2-replica tier with stealing, 1024 interleaved requests each held
+   against its own model's ``DaisProgram.run``, "jsc" hot-swapped for its
+   DCE'd engine mid-load; B4's launches equal, exactly, the gates' and the
+   buckets' launches plus the batches and warm-ups the scheduler's and the
+   tier's stats report; then B4 timed at every bucket and one request
+   batch's host time split into padding, ``engine.run`` and ``.cpu()``;
+13. seeded packed chains covering what JSC-HLF does not, kernel B4 against
    its plain version bit for bit in int32 and int64 compute: the synthetic
    chain (sum stages, non-identity gathers with the zero column, in-shifts,
    CMUL and WRAP epilogues, int8/int16/int32/int64 lanes), the wide chain
@@ -112,7 +130,7 @@ line:
    32 rows) and a 16->64->5 stack served through the gate, whose first
    stage's tables are read from global memory and second stage's staged in
    shared memory in one launch;
-13. the ``kernels`` JSON line, then the result line.
+14. the ``kernels`` JSON line, then the result line.
 
 ``python3 chip_smoke.py --b1-timing``, ``--b2-timing``, ``--b3-timing`` and
 ``--b4-timing`` print only kernel B1's, B2's, B3's or B4's timings (and B2's,
@@ -122,10 +140,11 @@ result line, to compare two trees in one call.
 
 The launch counters are zeroed just before each path (phases 5-6, phase 8
 after its step-1 comparison, phase 9 before its timings, and phase 10 after
-its step-1 comparison and before its off-path checks, phase 11 before the
-phase) and read just after it (phase 11 at its end, before its timings):
-each path must have launched each of its kernels, and in phase 11 every
-generic-path batch none.  Float32 matmuls and convolutions run without
+its step-1 comparison and before its off-path checks, phases 11 and 12
+before the phase) and read just after it (phases 11 and 12 at their end,
+before their timings): each path must have launched each of its kernels, in
+phase 11 every generic-path batch none, and in phase 12 B4 exactly as many
+times as the phase's gates, buckets, batches and warm-ups add up to.  Float32 matmuls and convolutions run without
 TF32.  Any failure exits non-zero with no result line; so does a machine
 without a CUDA device.
 """
@@ -2668,6 +2687,338 @@ def tooling_timings(engines):
                   f"path {engine.path}, {engine.n_groups} groups")
 
 
+# --------------------------------------------------------------------------- #
+# Phase 12, the serving stack (serve/): bundles of the trained JSC-HLF program
+# and the trained pid hybrid at ctx 100, cold-started on the card, answering
+# single requests through the micro-batcher and both models through a
+# 2-replica tier; B4 at every bucket of the scheduler's ladder
+STACK_MAX_BATCH = 64          # launch/serve.py's --max-batch default
+STACK_DELAY_MS = 2.0          # and its --max-delay-ms
+STACK_JSC_REQUESTS = 1024     # and its --requests
+STACK_JSC_RATES = (0.0, 2000.0)   # a burst, then its --rate
+STACK_PID_REQUESTS = 256
+STACK_TIER_REQUESTS = 1024
+STACK_CTX = 100
+STACK_TIMED = 200             # host-side samples of the per-batch breakdown
+
+
+def stack_gate_launches(att) -> int:
+    """B4 launches of one ``verify_engine`` gate on a B4 engine: one batch
+    of random rows, and one of the exhaustive cross-product when it ran."""
+    return 1 + int(att["exhaustive"] > 0)
+
+
+def stack_bundles(device, progs, tmp):
+    """Step 1: each program built fresh (its compose, pack, compile and gate
+    times), saved, cold-started from the bundle with ``verify="cached"`` and
+    ``"full"``; a copy with one table byte flipped refused.  Returns the
+    bundle paths, the cold-started engines and the B4 launches the gates
+    made."""
+    from repro_torch.core.analysis import analyze_ranges
+    from repro_torch.kernels.lut_serve import compose_fused_stages
+    from repro_torch.kernels.lut_serve_cuda import pack_stages
+    from repro_torch.serve.api import EngineSpec, build
+    from repro_torch.serve.artifact import (ArtifactError, load_artifact,
+                                            save_artifact)
+
+    pallas = dict(engine="pallas", require="pallas", n_random=2048, seed=SEED)
+    paths, engines, gates = {}, {}, 0
+    for name, prog in progs.items():
+        t0 = time.monotonic()
+        stages, why = compose_fused_stages(prog, ranges=analyze_ranges(prog))
+        compose_s = time.monotonic() - t0
+        check(stages is not None, f"{name}: the program does not compose: {why}")
+        fresh = build(prog, EngineSpec(verify="full", **pallas), device=device)
+        t0 = time.monotonic()
+        pack_stages(stages, fresh.engine.dtype)
+        pack_s = time.monotonic() - t0
+        gates += stack_gate_launches(fresh.attestation)
+        paths[name] = os.path.join(tmp, f"{name}.npz")
+        t0 = time.monotonic()
+        digest = save_artifact(paths[name], prog, attestation=fresh.attestation)
+        save_s = time.monotonic() - t0
+        cached = build(paths[name], EngineSpec(verify="cached", **pallas), device=device)
+        full = build(paths[name], EngineSpec(verify="full", **pallas), device=device)
+        gates += stack_gate_launches(full.attestation)
+        for b in (cached, full):
+            check(b.content_hash == digest and b.engine.path == "pallas"
+                  and b.engine.dtype == fresh.engine.dtype,
+                  f"{name}: bundle {b.content_hash} ({b.engine.path}, {b.engine.dtype}) "
+                  f"!= saved {digest} ({fresh.engine.dtype})")
+        check(cached.attestation == fresh.attestation and "gate_s" not in cached.timings,
+              f"{name}: verify='cached' did not trust the stored attestation")
+        bad = os.path.join(tmp, f"{name}-tampered.npz")
+        with np.load(paths[name]) as z:
+            arrays = {k: z[k].copy() for k in z.files}
+        key = sorted(k for k in arrays if k.startswith("packed/") and k.endswith("_table"))[0]
+        arrays[key].view(np.uint8)[0] ^= 1
+        np.savez(bad, **arrays)
+        try:
+            load_artifact(bad)
+            check(False, f"{name}: a bundle with a flipped table byte was loaded")
+        except ArtifactError as e:
+            refused = str(e)
+        check("content hash mismatch" in refused, f"{name}: tampered bundle: {refused}")
+        ct, ft = cached.timings, fresh.timings
+        print(f"[stack] {name} bundle: {os.path.getsize(paths[name])} bytes, hash "
+              f"{digest[:12]}, saved in {save_s:.3f}s; cold start (load + compile) "
+              f"{ct['load_s'] + ct['compile_s']:.4f}s ({ct['load_s']:.4f} + "
+              f"{ct['compile_s']:.4f}), gate skipped (cached); verify='full' cold start "
+              f"{full.timings['load_s'] + full.timings['compile_s'] + full.timings['gate_s']:.4f}s; "
+              f"fresh build: compose {compose_s:.4f}s, pack {pack_s:.4f}s (both inside "
+              f"compile {ft['compile_s']:.4f}s), gate {ft['gate_s']:.4f}s; {fresh.engine.dtype}, "
+              f"{fresh.engine.packed_table_bytes} packed table bytes; a flipped table byte "
+              f"({key}) refused: {refused[:70]}...")
+        engines[name] = cached
+    return paths, engines, gates
+
+
+def stack_buckets(device, progs, paths):
+    """Step 2: B4 from each bundle's stored packed payload at every bucket
+    of the ladder, bit for bit its plain version at the engine's dtype.
+    Returns the chains, the host codes of each bucket and the launches."""
+    import torch
+    from repro_torch.kernels.lut_serve_cuda import (PackedChain, run_chain,
+                                                    run_chain_plain)
+    from repro_torch.serve.artifact import load_artifact
+    from repro_torch.serve.scheduler import bucket_ladder
+
+    chains, launches = {}, 0
+    for name, prog in progs.items():
+        art = load_artifact(paths[name])
+        chain = PackedChain(art.packed, torch.int32, device)
+        xs = {b: tool_codes(prog, b, 1, SEED + 70 + b)[0]
+              for b in bucket_ladder(STACK_MAX_BATCH)}
+        for b, codes in xs.items():
+            x = torch.as_tensor(codes, device=device, dtype=torch.int32)
+            got = run_chain(chain, x)
+            launches += 1
+            check(torch.equal(got, run_chain_plain(chain, x)),
+                  f"{name}: B4 from the stored payload != plain at bucket {b}")
+            check(np.array_equal(got.cpu().numpy().astype(np.int64), prog.run(codes)),
+                  f"{name}: B4 from the stored payload != DaisProgram.run at bucket {b}")
+        chains[name] = (chain, art.packed, xs)
+    print(f"[stack] B4 from the bundles' stored (int64-packed) payloads on int32 "
+          f"engines: bit for bit its plain version and DaisProgram.run at buckets "
+          f"{bucket_ladder(STACK_MAX_BATCH)} on "
+          + ", ".join(f"{n} ({c.packed.n_stages()} stages, "
+                      f"{c.packed.table_bytes()} table bytes)"
+                      for n, (c, _p, _x) in chains.items()))
+    return chains, launches
+
+
+def stack_load(progs, engines):
+    """Step 3: ``compare_under_load`` (engine vs interpreter behind the
+    same scheduler; it raises unless every response is bit-exact): JSC at a
+    burst and at 2000 req/s, pid ctx 100 at a burst.  Returns the rows and
+    the launches (the engine rows' batches and warm-ups)."""
+    from repro_torch.serve.scheduler import (ServeConfig, bucket_ladder,
+                                             compare_under_load)
+
+    cfg = ServeConfig(max_batch=STACK_MAX_BATCH, max_delay_ms=STACK_DELAY_MS)
+    runs = {"jsc": (STACK_JSC_REQUESTS, STACK_JSC_RATES),
+            "pid": (STACK_PID_REQUESTS, (0.0,))}
+    out, launches = {}, 0
+    for name, (n, rates) in runs.items():
+        codes = tool_codes(progs[name], n, 1, SEED + 80)[0]
+        rows = compare_under_load(progs[name], engines[name].engine, codes, cfg, rates)
+        for r in rows:
+            if r["backend"] == "engine":
+                launches += r["n_batches"] + len(bucket_ladder(STACK_MAX_BATCH))
+        for rate in rates:
+            eng, interp = (next(r for r in rows if r["offered_rate"] == rate
+                                and r["backend"] == k) for k in ("engine", "interp"))
+            offered = f"{rate:.0f} req/s" if rate > 0 else "burst"
+            print(f"[stack] {name} MicroBatcher, {n} requests @ {offered} "
+                  f"(achieved {eng['achieved_rate']:.1f} req/s): p50 {eng['p50_ms']:.4f} ms, "
+                  f"p99 {eng['p99_ms']:.4f} ms, max {eng['max_ms']:.4f} ms, "
+                  f"{eng['rows_per_s']:.1f} rows/s, {eng['n_batches']} batches, mean fill "
+                  f"{eng['mean_batch_fill']:.2f}, mean bucket {eng['mean_bucket']:.2f}, pad "
+                  f"overhead {eng['pad_overhead']:.4f}, warm-up {eng['warmup_s']:.4f}s; "
+                  f"interpreter p50 {interp['p50_ms']:.4f} ms, p99 {interp['p99_ms']:.4f} ms, "
+                  f"{interp['rows_per_s']:.1f} rows/s; engine/interpreter "
+                  f"{eng['rows_per_s'] / interp['rows_per_s']:.3f}x; every response "
+                  f"bit-exact vs DaisProgram.run")
+            out[(name, rate)] = (eng, interp)
+    return out, launches
+
+
+def stack_tier(device, progs, paths, jsc_dce):
+    """Step 4: ``serve()`` over both bundles, 2 replicas with stealing;
+    1024 interleaved requests, each held against its own model's
+    ``DaisProgram.run``; mid-load "jsc" swapped for its DCE'd engine.
+    Returns the stats and the launches (batches and warm-ups)."""
+    import threading
+
+    from repro_torch.serve.api import EngineSpec, serve
+    from repro_torch.serve.scheduler import ServeConfig, bucket_ladder
+    from repro_torch.serve.tier import TierConfig
+
+    spec = EngineSpec(engine="pallas", require="pallas", verify="cached")
+    cfg = TierConfig(n_replicas=2, steal=True, serve=ServeConfig(
+        max_batch=STACK_MAX_BATCH, max_delay_ms=STACK_DELAY_MS))
+    tier = serve(paths, spec, cfg, device=device)
+    try:
+        # the retired engine marks its teardown; a batch it runs after that
+        # would be a request served by a torn-down engine
+        old = tier.registry.acquire("jsc")
+        tier.registry.release(old)
+        retired, late = threading.Event(), []
+        runner = old.engine._runner
+
+        def watched(x):
+            if retired.is_set():
+                late.append(x.shape[0])
+            return runner(x)
+
+        old.engine._runner = watched
+        old.engine.close = retired.set
+        per = STACK_TIER_REQUESTS // len(progs)
+        rng = np.random.default_rng(SEED + 90)
+        work = []
+        for name, prog in progs.items():
+            codes = tool_codes(prog, per, 1, SEED + 91 + len(work))[0]
+            ref = prog.run(codes)
+            work += [(name, codes[k], ref[k]) for k in range(per)]
+        order = rng.permutation(len(work))
+        t0 = time.monotonic()
+        flights = []
+        for k, idx in enumerate(order):
+            if k == len(order) // 2:
+                check(tier.registry.swap("jsc", jsc_dce.engine, jsc_dce.prog) == 2,
+                      "the hot-swap did not publish version 2")
+            name, row, ref = work[idx]
+            flights.append((tier.submit(row, name), name, ref))
+        bad = sum(not np.array_equal(np.asarray(f.result(timeout=120), np.int64), ref)
+                  for f, _n, ref in flights)
+        wall = time.monotonic() - t0
+        s = tier.stats()
+    finally:
+        tier.stop()
+    check(bad == 0, f"tier: {bad} responses differ from their model's DaisProgram.run")
+    check(retired.is_set() and not late and tier.registry.draining() == 0,
+          f"tier: retired engine torn down {retired.is_set()}, batches after it {late}")
+    check(s.per_model == {name: per for name in progs},
+          f"tier: per-model counts {s.per_model}")
+    print(f"[stack] tier: 2 replicas (time-multiplexed on one card), stealing; "
+          f"{len(flights)} interleaved requests as a burst in {wall:.4f}s "
+          f"({len(flights) / wall:.1f} req/s): p50 {s.p50_ms:.4f} ms, p99 "
+          f"{s.p99_ms:.4f} ms, max {s.max_ms:.4f} ms; per model {s.per_model}; "
+          f"{s.n_batches} batches (per replica {list(s.per_replica_batches)}), mean fill "
+          f"{s.mean_batch_fill:.2f}, pad overhead {s.pad_overhead:.4f}; stolen "
+          f"{s.n_stolen}; mid-load hot-swap of jsc for its DCE'd engine: no request "
+          f"failed, the retired engine drained and ran no batch after its teardown; "
+          f"every response bit-exact vs its model's DaisProgram.run")
+    return s, s.n_batches + len(progs) * len(bucket_ladder(STACK_MAX_BATCH))
+
+
+def phase_stack(device, jsc_layers, pid_layers):
+    """Phase 12, the main path of the serving stack: returns what the
+    timings use and the launch counts read at its end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.lower import compile_sequential, lower
+    from repro_torch.kernels import ops
+    from repro_torch.models.pid import build_pid_graph
+    from repro_torch.serve.api import EngineSpec, build
+
+    t_phase = time.monotonic()
+    progs = {"jsc": compile_sequential(jsc_layers, TRAIN_IN_F, TRAIN_IN_I),
+             "pid": lower(build_pid_graph(pid_layers, n_samples=STACK_CTX))}
+    tmp = tempfile.mkdtemp(prefix="stack-")
+    try:
+        paths, engines, gates = stack_bundles(device, progs, tmp)
+        jsc_dce = build(progs["jsc"], EngineSpec(engine="pallas", require="pallas",
+                                                 optimize=True, verify="full",
+                                                 n_random=2048, seed=SEED), device=device)
+        gates += stack_gate_launches(jsc_dce.attestation)
+        chains, bucket_launches = stack_buckets(device, progs, paths)
+        load, load_launches = stack_load(progs, engines)
+        tier, tier_launches = stack_tier(device, progs, paths, jsc_dce)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = ops.launch_counts()
+    want = gates + bucket_launches + load_launches + tier_launches
+    check(counts["lut_serve"] == want
+          and all(n == 0 for k, n in counts.items() if k != "lut_serve"),
+          f"stack: launches {counts}, B4 expected {want} (gates {gates}, buckets "
+          f"{bucket_launches}, MicroBatcher batches + warm-ups {load_launches}, tier "
+          f"batches + warm-ups {tier_launches})")
+    print(f"[stack] B4 launches {counts['lut_serve']} = gates {gates} + stored-payload "
+          f"buckets {bucket_launches} + MicroBatcher batches and warm-ups "
+          f"{load_launches} + tier batches and warm-ups {tier_launches}: every request "
+          f"batch reached the kernel, nothing ran a plain version; phase done in "
+          f"{time.monotonic() - t_phase:.1f}s")
+    return {"progs": progs, "engines": engines, "chains": chains, "load": load,
+            "tier": tier}, counts
+
+
+def stack_timings(stack, report):
+    """After the phase's launch count: B4 at every bucket of both chains
+    (CUDA events, beside its bound), then where one request batch's host
+    time goes on the JSC engine at buckets 1 and 64: stacking and padding
+    the codes, ``engine.run`` (the host-to-device copy, the dtype cast and
+    B4's enqueue) and the ``.cpu()`` that waits for the result (medians of
+    ``STACK_TIMED`` batches); last, the scheduler alone: the JSC burst of
+    step 3 through a ``MicroBatcher`` whose engine is a host copy of its
+    input (no device work), the queueing and scatter the burst pays on its
+    own."""
+    import torch
+    from repro_torch.kernels.lut_serve_cuda import run_chain
+    from repro_torch.parallel.sharding import pad_batch
+    from repro_torch.serve.scheduler import (MicroBatcher, ServeConfig,
+                                             drive_open_loop)
+
+    times, bounds = {}, {}
+    for name, (chain, packed, xs) in stack["chains"].items():
+        times[name], bounds[name] = {}, {}
+        for b, codes in xs.items():
+            x = torch.as_tensor(codes, device=chain.device, dtype=torch.int32)
+            times[name][b] = cuda_ms(lambda: run_chain(chain, x), iters=50)
+            bounds[name][b] = b4_bound(chain, packed, b)[0]
+        print(f"[stack-time] B4 {name} by bucket, ms (bound): " + ", ".join(
+            f"{b}: {times[name][b]:.5f} ({bounds[name][b]:.6f})" for b in xs))
+    engine = stack["engines"]["jsc"].engine
+    for b in (1, STACK_MAX_BATCH):
+        rows = stack["chains"]["jsc"][2][b]
+        pad_s, run_s, cpu_s = [], [], []
+        for _ in range(STACK_TIMED):
+            t0 = time.perf_counter()
+            x = pad_batch(np.stack(list(rows[:max(b - 1, 1)])), b)
+            t1 = time.perf_counter()
+            out = engine.run(x)
+            t2 = time.perf_counter()
+            out[:b].cpu().numpy()
+            t3 = time.perf_counter()
+            pad_s.append(t1 - t0)
+            run_s.append(t2 - t1)
+            cpu_s.append(t3 - t2)
+        med = [float(np.median(v)) * 1e3 for v in (pad_s, run_s, cpu_s)]
+        print(f"[stack-time] jsc request batch, bucket {b}: host ms (median of "
+              f"{STACK_TIMED}) stack + pad {med[0]:.5f}, engine.run (copy in, cast, B4 "
+              f"enqueue) {med[1]:.5f}, .cpu() (wait + copy out) {med[2]:.5f}; B4 device "
+              f"{times['jsc'][b]:.5f}")
+    class HostCopy:
+        n_inputs = engine.n_inputs
+
+        def run(self, x):
+            return np.array(x)
+
+    codes = tool_codes(stack["progs"]["jsc"], STACK_JSC_REQUESTS, 1, SEED + 80)[0]
+    with MicroBatcher(HostCopy(), ServeConfig(max_batch=STACK_MAX_BATCH,
+                                              max_delay_ms=STACK_DELAY_MS)) as mb:
+        out, drive = drive_open_loop(mb, codes, 0.0)
+    check(np.array_equal(out, codes), "scheduler alone: rows came back misrouted")
+    s = mb.stats()
+    print(f"[stack-time] scheduler alone (host-copy engine), {STACK_JSC_REQUESTS} "
+          f"requests as a burst: p50 {s.p50_ms:.4f} ms, p99 {s.p99_ms:.4f} ms, "
+          f"{STACK_JSC_REQUESTS / drive['wall_s']:.1f} rows/s, {s.n_batches} batches, "
+          f"submitted at {drive['achieved_rate']:.1f} req/s")
+    report["lut_serve"].update({
+        "stack_bucket_ms": times, "stack_bucket_bound_ms": bounds})
+
+
 def synthetic_chain(rng, dtype):
     """A seeded packed chain with everything the JSC-HLF chain lacks."""
     import torch
@@ -2939,7 +3290,8 @@ def main() -> int:
              "train": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
              "loop": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
              "pid": ("fake_quant", "lut_serve"),
-             "tooling": ("lut_serve",)}
+             "tooling": ("lut_serve",),
+             "stack": ("lut_serve",)}
     launches = {}
     try:
         phase_device()
@@ -2973,6 +3325,9 @@ def main() -> int:
         ops.reset_launch_counts()                      # path 5: generic runner, IR tooling
         tool_engines, launches["tooling"] = phase_tooling(device, train_state[0], pid_layers)
         tooling_timings(tool_engines)
+        ops.reset_launch_counts()                      # path 6: the serving stack
+        stack, launches["stack"] = phase_stack(device, train_state[0], pid_layers)
+        stack_timings(stack, report)
         for path, names in paths.items():
             check(all(launches[path][n] > 0 for n in names),
                   f"the {path} path skipped a kernel: launches {launches[path]}")

@@ -25,14 +25,12 @@ Steps:
    bias only the windows next to an lc1 input tie may move, and the gap is
    reported (the reference asserts it below 0.5, which is no bound,
    ROADMAP C12); then the test waveforms' codes served bit for bit against
-   ``DaisProgram.run``;
+   ``DaisProgram.run``, as one batch and as single requests through the
+   micro-batching scheduler (``MicroBatcher``, ``max_batch=16``);
 6. the program's Verilog written to ``--verilog`` (default:
    ``pid_hybrid.v`` in the temporary directory) and the three-way
    attestation: RTL simulation == DAIS interpreter == the engine on its
    device (``verify_rtl``).
-
-The reference serves single requests through its ``MicroBatcher`` between
-steps 5 and 6; that step waits for the serving stack (ROADMAP A5).
 
 Run (on the card, or on the CPU with the kernels' plain versions)::
 
@@ -253,6 +251,7 @@ def main(argv=None) -> Dict:
     from repro_torch.core.rtl import emit_verilog, verify_rtl
     from repro_torch.models.pid import IN_F, IN_I, build_pid_graph, build_pid_layers
     from repro_torch.serve.api import EngineSpec, build
+    from repro_torch.serve.scheduler import MicroBatcher, ServeConfig
 
     steps = args.steps if args.steps is not None else (8 if args.smoke else 500)
     n_train, n_test = (96, 48) if args.smoke else (1200, 400)
@@ -335,6 +334,17 @@ def main(argv=None) -> Dict:
         raise SystemExit("served batch diverged from DaisProgram.run")
     print(f"served {len(codes)} test waveforms bit-exactly on path {engine.path}")
 
+    # ----------------------------- serve individual requests, bit-exactly
+    with MicroBatcher(engine, ServeConfig(max_batch=16)) as batcher:
+        futures = batcher.submit_many(codes)
+        out = np.stack([f.result(timeout=120) for f in futures])
+        stats = batcher.stats()
+    if not np.array_equal(out.astype(np.int64), prog.run(codes)):
+        raise SystemExit("scheduler responses diverged from DaisProgram.run")
+    print(f"scheduler served {stats.n_requests} waveform requests "
+          f"bit-exactly: p50={stats.p50_ms:.2f} ms p99={stats.p99_ms:.2f} ms "
+          f"(batches={stats.n_batches})")
+
     # ------------------------------- emit Verilog + three-way attestation
     verilog = emit_verilog(prog, name="pid_hybrid")
     path = args.verilog or os.path.join(tempfile.gettempdir(), "pid_hybrid.v")
@@ -351,6 +361,7 @@ def main(argv=None) -> Dict:
           f"wires, {time.monotonic() - t0:.1f}s)")
     return {"steps": steps, "sep": s_pred, "sep_true": s_true, "ebops": eb,
             "gap": gap, "path": engine.path, "served": len(codes),
+            "scheduler": stats,
             "n_instrs": prog.n_instrs(), "rtl": att, "verilog": path}
 
 

@@ -7,8 +7,10 @@ source, of the shared headers (``csrc/*.cuh``) and of the flags, so an
 edited source or header is rebuilt and a stale library is never loaded.  :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time; this module also holds the launch
-counters, one plain integer per kernel, which each wrapper increments where
-it launches its kernel and nowhere else.
+counters, one plain integer per kernel, which each wrapper increments
+(:func:`count_launch`) where it launches its kernel and nowhere else.  Both
+the first-use build and load and the counters are safe for threads: serving
+replicas launch kernels from several host threads at once.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -32,11 +35,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# held across a library's first build and load, so threads that need it at
+# once build it once and load it once
+_LOAD_LOCK = threading.Lock()
+# held across each read-modify-write of LAUNCHES
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of kernel ``name`` to its counter, atomically."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -99,11 +114,19 @@ def build_log(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+
+    ``bind`` (the wrapper's signature setup) runs once, on the first load,
+    under the same lock, before any thread is handed the library.
+    """
     lib = _LOADED.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                bind(lib)
+                _LOADED[name] = lib
     return lib

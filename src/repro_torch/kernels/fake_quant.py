@@ -29,20 +29,17 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import fake_quant_ref
 
-_LIB = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.fake_quant_forward.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.fake_quant_forward.restype = ctypes.c_int
+    lib.fake_quant_error_string.argtypes = [ctypes.c_int]
+    lib.fake_quant_error_string.restype = ctypes.c_char_p
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = build.load("fake_quant")
-        lib.fake_quant_forward.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        lib.fake_quant_forward.restype = ctypes.c_int
-        lib.fake_quant_error_string.argtypes = [ctypes.c_int]
-        lib.fake_quant_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    return build.load("fake_quant", _bind)
 
 
 def fake_quant_fused(x: torch.Tensor, f, i, *, signed: bool = True,
@@ -121,5 +118,5 @@ def _launch(x, f, i, signed, overflow):
     if rc != 0:
         raise RuntimeError(f"fake_quant_forward launch failed: "
                            f"{lib.fake_quant_error_string(rc).decode()}")
-    build.LAUNCHES["fake_quant"] += 1
+    build.count_launch("fake_quant")
     return out

@@ -32,7 +32,6 @@ STAGE_BYTES = 96 * 1024         # shared memory for one chunk of cells and weigh
 SMEM_PER_SM = 228 * 1024        # shared memory of an SM ...
 SMEM_PER_BLOCK = 1024           # ... of which the runtime reserves this per block
 
-_LIB = None
 _BLOCKS_PER_SM: Dict[Tuple[int, int, int], int] = {}   # (device, H, warps) -> occupancy
 _PLANS: Dict[tuple, "LaunchPlan"] = {}                  # (device, B, C_in, H, C_out) -> plan
 
@@ -98,21 +97,20 @@ def launch_plan(batch: int, c_in: int, c_out: int, hidden: int, sm_count: int,
     return best[1]
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.lut_dense_forward.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.lut_dense_forward.restype = ctypes.c_int
+    lib.lut_dense_forward_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lut_dense_forward_blocks_per_sm.restype = ctypes.c_int
+    lib.lut_dense_forward_smem.argtypes = [ctypes.c_int] * 4
+    lib.lut_dense_forward_smem.restype = ctypes.c_longlong
+    lib.lut_dense_error_string.argtypes = [ctypes.c_int]
+    lib.lut_dense_error_string.restype = ctypes.c_char_p
+
+
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = build.load("lut_dense")
-        lib.lut_dense_forward.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.lut_dense_forward.restype = ctypes.c_int
-        lib.lut_dense_forward_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.lut_dense_forward_blocks_per_sm.restype = ctypes.c_int
-        lib.lut_dense_forward_smem.argtypes = [ctypes.c_int] * 4
-        lib.lut_dense_forward_smem.restype = ctypes.c_longlong
-        lib.lut_dense_error_string.argtypes = [ctypes.c_int]
-        lib.lut_dense_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    return build.load("lut_dense", _bind)
 
 
 def lut_dense_fused(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out):
@@ -202,5 +200,5 @@ def _launch(*args):
         if rc != 0:
             raise RuntimeError(f"lut_dense_forward launch failed: "
                                f"{lib.lut_dense_error_string(rc).decode()}")
-        build.LAUNCHES["lut_dense"] += 1
+        build.count_launch("lut_dense")
     return out

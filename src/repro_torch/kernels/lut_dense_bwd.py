@@ -23,7 +23,6 @@ from repro_torch.kernels.ref import lut_dense_bwd_ref
 # a split holds at least a warp of rows, when the batch allows
 MIN_SPLIT_ROWS = 32
 
-_LIB = None
 _BLOCKS_PER_SM: Dict[Tuple[int, int], int] = {}   # (device, hidden) -> occupancy
 _PLANS: Dict[tuple, "LaunchPlan"] = {}             # (device, B, C_in, H, C_out) -> plan
 _WORKSPACE: Dict[int, tuple] = {}                  # device -> (tickets, partials)
@@ -55,21 +54,20 @@ def launch_plan(batch: int, c_in: int, c_out: int, hidden: int, sm_count: int,
     return LaunchPlan(n_split, split_rows, n_split * c_in * (3 * hidden + 4) * c_out, c_in)
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.lut_dense_backward.argtypes = [ctypes.c_void_p] * 20 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.lut_dense_backward.restype = ctypes.c_int
+    lib.lut_dense_backward_max_split_rows.argtypes = []
+    lib.lut_dense_backward_max_split_rows.restype = ctypes.c_int
+    lib.lut_dense_backward_blocks_per_sm.argtypes = [ctypes.c_int]
+    lib.lut_dense_backward_blocks_per_sm.restype = ctypes.c_int
+    lib.lut_dense_backward_error_string.argtypes = [ctypes.c_int]
+    lib.lut_dense_backward_error_string.restype = ctypes.c_char_p
+
+
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = build.load("lut_dense_bwd")
-        lib.lut_dense_backward.argtypes = [ctypes.c_void_p] * 20 + [
-            ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.lut_dense_backward.restype = ctypes.c_int
-        lib.lut_dense_backward_max_split_rows.argtypes = []
-        lib.lut_dense_backward_max_split_rows.restype = ctypes.c_int
-        lib.lut_dense_backward_blocks_per_sm.argtypes = [ctypes.c_int]
-        lib.lut_dense_backward_blocks_per_sm.restype = ctypes.c_int
-        lib.lut_dense_backward_error_string.argtypes = [ctypes.c_int]
-        lib.lut_dense_backward_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    return build.load("lut_dense_bwd", _bind)
 
 
 def lut_dense_bwd_fused(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, g):
@@ -176,7 +174,7 @@ def _launch(*args):
         if rc != 0:
             raise RuntimeError(f"lut_dense_backward launch failed: "
                                f"{lib.lut_dense_backward_error_string(rc).decode()}")
-        build.LAUNCHES["lut_dense_bwd"] += 1
+        build.count_launch("lut_dense_bwd")
     else:                                   # nothing to sum: zero gradients
         for t in (dx, w3, c4):
             t.zero_()

@@ -170,10 +170,40 @@ class ServeEngine:
             x = x[None]
         return self._runner(x.contiguous())
 
+    def clone(self) -> "ServeEngine":
+        """A replica-local handle sharing this engine's compiled runner.
+
+        The runner's device constants (and kernel B4's lowered chain) are
+        read-only and shared; the clone is its own dataclass instance, so
+        each serving-tier replica holds its own handle instead of N threads
+        aliasing one.  Used by ``repro_torch.serve.tier.ServeTier``.
+        """
+        return dataclasses.replace(self)
+
+    def warm(self, batch_sizes) -> List[int]:
+        """Run all-zero codes (always in range) through every batch size in
+        ``batch_sizes`` and wait for the device; returns the sizes warmed.
+
+        The micro-batching scheduler pads every flush to a power-of-two
+        bucket and calls this at ``start()`` with the bucket ladder, so each
+        bucket's first launch (and its tile plan, ``PackedChain.tiles``)
+        happens here, never on a request.  Kernel B4's library is built and
+        loaded earlier still, when the engine lowers its chain onto the card.
+        """
+        warmed = []
+        for b in batch_sizes:
+            self.run(np.zeros((int(b), self.n_inputs), np.int64))
+            warmed.append(int(b))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return warmed
+
 
 def compile_program(prog: DaisProgram, *, device="cuda",
                     dtype: Optional[torch.dtype] = None,
                     engine: Optional[str] = "fused",
+                    stages: Optional["FusedStages"] = None,
+                    packed: Optional[object] = None,
                     narrow: bool = True) -> ServeEngine:
     """Lower a DAIS program to a serving engine on ``device``.
 
@@ -185,18 +215,28 @@ def compile_program(prog: DaisProgram, *, device="cuda",
     on ``ServeEngine.fuse_reason``, with the chosen lowering on
     ``ServeEngine.path``.
 
+    ``stages``: pre-composed :class:`FusedStages` (from a compiled-artifact
+    bundle) — the composition pass is skipped.  ``packed``: a pre-packed
+    :class:`~repro_torch.kernels.lut_serve_cuda.PackedStages` (a bundle's
+    v3 payload, packed with int64 arithmetic) — ``pack_stages`` is skipped
+    and the payload is lowered at the engine's dtype, whose two's-complement
+    wrap makes it equal to a chain packed at that dtype.
+
     ``narrow``: run the static interval analysis (``core/analysis.py``) to
     size the engine dtype from the proven :func:`engine_width` bound and
     hand the chain packer per-stage ``live`` entry masks that shrink table
     lanes.  ``narrow=False`` sizes the dtype from ``required_width()`` and
     packs full rows: the baseline of the reference's lane-narrowing rows.
+    Given ``stages`` there is no analysis, as in the reference: the dtype
+    comes from ``required_width()`` and the stored payload keeps the lanes
+    it was saved with.
     """
     want = "fused" if engine is None else engine
     if want not in ("pallas", "fused", "groups"):
         raise ValueError(
             f"unknown engine {want!r} (choices: pallas, fused, groups)")
     device = torch.device(device)
-    ranges = _ranges(prog) if narrow else None
+    ranges = _ranges(prog) if narrow and stages is None else None
     # engine_width/required_width cover transient pre-clamp REQUANT /
     # pre-add align values, which can exceed every declared register width
     width_bound = (ranges.engine_width() if ranges is not None
@@ -209,7 +249,7 @@ def compile_program(prog: DaisProgram, *, device="cuda",
     run, stages, reason = None, None, ""
     downgrades: List[str] = []
     packed_bytes = 0
-    if want in ("pallas", "fused"):
+    if want in ("pallas", "fused") and stages is None:
         stages, reason = compose_fused_stages(prog, ranges=ranges)
     if want == "pallas":
         if stages is None:
@@ -217,13 +257,14 @@ def compile_program(prog: DaisProgram, *, device="cuda",
         else:
             from repro_torch.kernels import lut_serve_cuda as _chain
             try:
-                packed = _chain.pack_stages(stages, dtype)
+                if packed is None:
+                    packed = _chain.pack_stages(stages, dtype)
                 run = _chain.chain_runner(packed, dtype, device)
                 path, n_groups, n_launches = "pallas", packed.n_stages(), 1
                 packed_bytes = packed.table_bytes()
             except _chain.PackError as e:
                 downgrades.append(f"pallas unavailable: {e}")
-    if run is None and stages is not None:
+    if run is None and want in ("pallas", "fused") and stages is not None:
         run, path = _fused_runner(stages, dtype, device), "fused"
         n_groups = n_launches = stages.n_stages()
     elif run is None and want == "fused":

@@ -567,31 +567,27 @@ def run_chain_plain(chain: PackedChain, x: torch.Tensor) -> torch.Tensor:
     return v[:, chain._out_cols]
 
 
-_LIB = None
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.lut_serve_chain.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.lut_serve_chain.restype = ctypes.c_int
+    lib.lut_serve_blocks_per_sm.argtypes = [ctypes.c_int]
+    layout = (lib.lut_serve_header_fields, lib.lut_serve_descriptor_fields,
+              lib.lut_serve_copy_fields, lib.lut_serve_max_epilogue,
+              lib.lut_serve_threads, lib.lut_serve_outputs_per_warp)
+    for fn in (lib.lut_serve_blocks_per_sm, *layout):
+        fn.restype = ctypes.c_int
+    lib.lut_serve_error_string.argtypes = [ctypes.c_int]
+    lib.lut_serve_error_string.restype = ctypes.c_char_p
+    if tuple(fn() for fn in layout) != (N_HEADER, N_FIELDS, COPY_FIELDS, MAX_EPI,
+                                        THREADS, OUTPUTS_PER_WARP):
+        raise RuntimeError("csrc/lut_serve.cu and lut_serve_cuda.py "
+                           "disagree on the descriptor or block layout")
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = build.load("lut_serve")
-        lib.lut_serve_chain.argtypes = (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.lut_serve_chain.restype = ctypes.c_int
-        lib.lut_serve_blocks_per_sm.argtypes = [ctypes.c_int]
-        layout = (lib.lut_serve_header_fields, lib.lut_serve_descriptor_fields,
-                  lib.lut_serve_copy_fields, lib.lut_serve_max_epilogue,
-                  lib.lut_serve_threads, lib.lut_serve_outputs_per_warp)
-        for fn in (lib.lut_serve_blocks_per_sm, *layout):
-            fn.restype = ctypes.c_int
-        lib.lut_serve_error_string.argtypes = [ctypes.c_int]
-        lib.lut_serve_error_string.restype = ctypes.c_char_p
-        if tuple(fn() for fn in layout) != (N_HEADER, N_FIELDS, COPY_FIELDS, MAX_EPI,
-                                            THREADS, OUTPUTS_PER_WARP):
-            raise RuntimeError("csrc/lut_serve.cu and lut_serve_cuda.py "
-                               "disagree on the descriptor or block layout")
-        _LIB = lib
-    return _LIB
+    return build.load("lut_serve", _bind)
 
 
 def run_chain(chain: PackedChain, x: torch.Tensor) -> torch.Tensor:
@@ -626,7 +622,7 @@ def run_chain(chain: PackedChain, x: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"lut_serve_chain launch failed: "
                            f"{lib.lut_serve_error_string(rc).decode()}")
-    build.LAUNCHES["lut_serve"] += 1
+    build.count_launch("lut_serve")
     return out
 
 

@@ -20,13 +20,14 @@ report plus the program-level width story:
 Sources: ``--model`` builds the same untrained model specs as
 ``launch/serve.py``, its layers, table extraction and lowering on
 ``--device`` (``cuda`` unless told ``--device cpu``); the passes themselves
-are numpy over the lowered program.  The reference's bundle
-mode (positional compiled-artifact paths, hash-checked and verified on
-load) waits for the port of ``serve/artifact.py`` (ROADMAP A4): a bundle
-path is refused with that message.  Exit status is non-zero when any
-program fails the verifier, making this the CI ``ir-verify`` gate.
+are numpy over the lowered program.  Positional paths are compiled-artifact
+bundles (``serve/artifact.py``, either package's), hash-checked and
+structurally verified on load; a bundle that fails is reported REJECTED.
+Exit status is non-zero when any bundle is rejected or any program fails
+the verifier, making this the CI ``ir-verify`` gate.
 
 Usage:
+    PYTHONPATH=src python -m repro_torch.launch.lint jsc.npz pid.npz
     PYTHONPATH=src python -m repro_torch.launch.lint --model lut-stack \
         --lut-dims 16,20,5
     PYTHONPATH=src python -m repro_torch.launch.lint --model pid-hybrid --ctx 100 \
@@ -157,16 +158,32 @@ def lint_program(prog: DaisProgram, *, name: str = "program",
     return report
 
 
+def lint_bundle(path: str, *, dce: bool = True, all_regs: bool = False,
+                echo: Callable[[str], None] = print) -> dict:
+    """Load (hash-check + structurally verify) a bundle, then lint it."""
+    from repro_torch.serve.artifact import ArtifactError, load_artifact
+
+    try:
+        art = load_artifact(path)
+    except ArtifactError as e:
+        echo(f"[lint] {path}: REJECTED\n{e}")
+        return {"ok": False, "n_diagnostics": 1}
+    echo(f"[lint] {path}: bundle ok (hash {art.content_hash[:12]}, "
+         f"format v{art.meta.get('format_version')})")
+    return lint_program(art.prog, name=path, dce=dce, all_regs=all_regs,
+                        echo=echo)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description="static DAIS IR lint: verifier + range analysis + "
                     "self-certified DCE")
     ap.add_argument("bundles", nargs="*",
-                    help="compiled-artifact bundle paths: refused until "
-                         "artifacts are ported (ROADMAP A4)")
+                    help="compiled-artifact bundle paths (.npz)")
     ap.add_argument("--model", choices=("lut-stack", "pid-hybrid"),
                     default=None,
-                    help="lint a freshly built (untrained) model program")
+                    help="lint a freshly built (untrained) model program "
+                         "instead of (or in addition to) bundles")
     ap.add_argument("--lut-dims", default="16,20,5")
     ap.add_argument("--lut-hidden", type=int, default=8)
     ap.add_argument("--in-f", type=int, default=4)
@@ -182,22 +199,23 @@ def main(argv=None) -> None:
     ap.add_argument("--no-dce", action="store_true",
                     help="skip the self-certified DCE round")
     args = ap.parse_args(argv)
-    if args.bundles:
-        ap.error(f"bundle linting needs compiled-artifact bundles, which the "
-                 f"port does not read yet (ROADMAP A4): {args.bundles}; "
-                 f"lint a model with --model")
-    if args.model is None:
-        ap.error("nothing to lint: pass --model")
+    if not args.bundles and args.model is None:
+        ap.error("nothing to lint: pass bundle paths and/or --model")
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda but no CUDA device is available")
-
-    from repro_torch.launch.serve import build_model_program
-    prog, desc = build_model_program(args, device)
-    rep = lint_program(prog, name=desc, dce=not args.no_dce,
-                       all_regs=args.all_regs)
-    if not rep["ok"]:
+    ok = True
+    for path in args.bundles:
+        rep = lint_bundle(path, dce=not args.no_dce, all_regs=args.all_regs)
+        ok = ok and rep["ok"]
+    if args.model is not None:
+        device = torch.device(args.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise SystemExit("--device cuda but no CUDA device is available")
+        from repro_torch.launch.serve import build_model_program
+        prog, desc = build_model_program(args, device)
+        rep = lint_program(prog, name=desc, dce=not args.no_dce,
+                           all_regs=args.all_regs)
+        ok = ok and rep["ok"]
+    if not ok:
         sys.exit(1)
 
 

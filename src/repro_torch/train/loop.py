@@ -160,7 +160,7 @@ class _GraphChunk:
                 cap.batches[key].copy_(b)
         cap.graph.replay()
         for name, n in cap.launches.items():
-            build.LAUNCHES[name] += n
+            build.count_launch(name, n)
         return self.opt_state, cap.metrics
 
     def _capture(self, k: int, batches) -> _Captured:

@@ -744,3 +744,119 @@ def test_dce_program_through_b4_and_rtl_on_card(device, narrow):
     np.testing.assert_array_equal(out.cpu().numpy().astype(np.int64), prog.run(codes))
     att = verify_rtl(built.prog, oracle=prog, engine=built.engine, n_random=256)
     assert att["verdict"] == "bit-exact" and att["engine_path"] == "pallas"
+
+
+# --------------------------------------------------------------------------- #
+# the serving stack on the card: bundles, the scheduler, the tier
+# --------------------------------------------------------------------------- #
+def _bundle(device, tmp_path):
+    from repro_torch.serve.artifact import load_artifact, save_artifact
+
+    prog = _jsc_program(device)
+    path = str(tmp_path / "jsc.npz")
+    save_artifact(path, prog)
+    return prog, path, load_artifact(path)
+
+
+def test_b4_from_a_stored_payload_at_every_bucket(device, tmp_path):
+    """B4 on a bundle's stored (int64-packed) payload lowered at int32, one
+    launch a call, bit for bit its plain version at every bucket 1..64."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_serve_cuda import (PackedChain, run_chain,
+                                                    run_chain_plain)
+    from repro_torch.serve.scheduler import bucket_ladder
+
+    prog, _path, art = _bundle(device, tmp_path)
+    chain = PackedChain(art.packed, torch.int32, device)
+    for b in bucket_ladder(64):
+        codes = _in_range(prog, b, seed=b)
+        x = torch.as_tensor(codes, device=device, dtype=torch.int32)
+        before = ops.launch_counts()["lut_serve"]
+        got = run_chain(chain, x)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["lut_serve"] == before + 1
+        assert torch.equal(got, run_chain_plain(chain, x))
+        np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64), prog.run(codes))
+
+
+def test_micro_batcher_with_two_workers_on_b4(device, tmp_path):
+    from repro_torch.kernels import ops
+    from repro_torch.serve.api import EngineSpec, build
+    from repro_torch.serve.scheduler import MicroBatcher, ServeConfig
+
+    prog, path, _art = _bundle(device, tmp_path)
+    engine = build(path, EngineSpec(engine="pallas", require="pallas", n_random=1024),
+                   device=device).engine
+    codes = _in_range(prog, 1000, seed=7)
+    before = ops.launch_counts()["lut_serve"]
+    with MicroBatcher(engine, ServeConfig(max_batch=64, max_delay_ms=2.0,
+                                          n_workers=2)) as mb:
+        out = np.stack([f.result(timeout=60) for f in mb.submit_many(codes)])
+    np.testing.assert_array_equal(out.astype(np.int64), prog.run(codes))
+    s = mb.stats()
+    assert s.n_requests == 1000 and s.engine_path == "pallas"
+    assert ops.launch_counts()["lut_serve"] - before == s.n_batches + 7   # + warm-up
+
+
+def test_tier_first_calls_race_load_once_and_count_every_launch(device, tmp_path,
+                                                                monkeypatch):
+    """Two replicas make their first B4 call together with the library
+    unloaded: one of them builds and loads it, the other waits; then 8
+    threads launch B4 at once, and the counter holds every launch of both."""
+    import itertools
+    import threading
+    import time
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import ops
+    from repro_torch.serve.api import EngineSpec, build, tier_from_built
+    from repro_torch.serve.scheduler import ServeConfig
+    from repro_torch.serve.tier import TierConfig
+
+    prog, path, _art = _bundle(device, tmp_path)
+    built = build(path, EngineSpec(engine="pallas", require="pallas", verify="skip"),
+                  device=device)
+    loads, entered = [], set()
+    real_load, real_build_all = kbuild.load, kbuild.build_all
+
+    def recorded_load(name, bind):
+        if name not in kbuild._LOADED:      # this thread found it unloaded
+            entered.add(threading.get_ident())
+        return real_load(name, bind)
+
+    def slow_build_all(names):
+        loads.extend(names)
+        time.sleep(0.2)                     # both replicas arrive meanwhile
+        return real_build_all(names)
+
+    monkeypatch.setattr(kbuild, "_LOADED", {})
+    monkeypatch.setattr(kbuild, "load", recorded_load)
+    monkeypatch.setattr(kbuild, "build_all", slow_build_all)
+    tier = tier_from_built({"jsc": built}, TierConfig(
+        n_replicas=2, steal=False, warmup=False,
+        serve=ServeConfig(max_batch=64, max_delay_ms=2.0, warmup=False)), start=False)
+    turn = itertools.count()                # alternate the replicas
+    monkeypatch.setattr(tier, "_route_locked", lambda: next(turn) % 2)
+    codes = _in_range(prog, 128, seed=8)
+    before = ops.launch_counts()["lut_serve"]
+    with tier:
+        futs = [tier.submit(codes[k]) for k in range(len(codes))]
+        out = np.stack([f.result(timeout=60) for f in futs])
+    np.testing.assert_array_equal(out.astype(np.int64), prog.run(codes))
+    s = tier.stats()
+    assert loads == ["lut_serve"] and len(entered) == 2
+    assert all(n > 0 for n in s.per_replica_batches)
+    assert ops.launch_counts()["lut_serve"] - before == s.n_batches
+
+    chain = built.engine
+    x = torch.as_tensor(codes[:64], device=device, dtype=torch.int32)
+    before = ops.launch_counts()["lut_serve"]
+    threads = [threading.Thread(target=lambda: [chain.run(x) for _ in range(250)])
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lut_serve"] - before == 8 * 250

@@ -432,6 +432,8 @@ def test_example_smoke_runs_to_the_gate(capsys, tmp_path):
     assert out["gap"]["n_dq"] <= out["gap"]["n_tie"]
     text = capsys.readouterr().out
     assert "bit-exact gate PASSED" in text and "served 48 test waveforms" in text
+    assert out["scheduler"].n_requests == 48 and out["scheduler"].n_batches >= 3
+    assert "scheduler served 48 waveform requests bit-exactly" in text
     assert "equal with the front's bias on the program's grid" in text
 
 

@@ -272,6 +272,35 @@ def test_lint_text_equals_the_reference(jsc, which, all_regs):
     assert rep["ok"] == (which != "bad")
 
 
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_lint_bundle_equals_the_reference(jsc, tmp_path, writer):
+    """Bundle mode: a bundle written by either package is linted by both
+    with the same text (hash, format, report); a tampered one is REJECTED
+    by both."""
+    from repro.launch.lint import lint_bundle as ref_lint_bundle
+    from repro.serve.artifact import save_artifact as ref_save
+    from repro_torch.launch.lint import lint_bundle
+    from repro_torch.serve.artifact import save_artifact
+
+    path = str(tmp_path / "jsc.npz")
+    if writer == "port":
+        save_artifact(path, jsc)
+    else:
+        ref_save(path, RefDaisProgram.from_arrays(jsc.to_arrays()))
+    rep, got = _lint_lines(lint_bundle, path)
+    want_rep, want = _lint_lines(ref_lint_bundle, path)
+    assert got == want and rep == want_rep and rep["ok"]
+    assert "bundle ok (hash" in got[0] and "format v3" in got[0]
+    with np.load(path) as z:
+        arrays = {k: z[k].copy() for k in z.files}
+    arrays["fused/stage0_table"].flat[0] ^= 1
+    np.savez(path, **arrays)
+    rep, got = _lint_lines(lint_bundle, path)
+    want_rep, want = _lint_lines(ref_lint_bundle, path)
+    assert rep == want_rep == {"ok": False, "n_diagnostics": 1}
+    assert got[0] == want[0] and "REJECTED" in got[0] and "hash mismatch" in got[0]
+
+
 def test_lint_cli(capsys):
     from repro_torch.launch.lint import main
 
@@ -285,11 +314,12 @@ def test_lint_cli(capsys):
     out = capsys.readouterr().out
     assert "model=pid-hybrid ctx=20" in out and "dce round" not in out
     with pytest.raises(SystemExit) as e:
-        main(["model.npz"])
-    assert e.value.code == 2
-    assert "ROADMAP A4" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
+        main(["model.npz"])                       # no such bundle
+    assert e.value.code == 1
+    assert "[lint] model.npz: REJECTED" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as e:
         main([])
+    assert e.value.code == 2
 
 
 # --------------------------------------------------------------------------- #

@@ -165,11 +165,15 @@ def test_build_gate_and_spec(jsc):
                                  "max_width": prog.max_width(), "n_groups": 2}
     skipped = build(prog, EngineSpec(verify="skip"), device="cpu")
     assert skipped.attestation is None and "gate_s" not in skipped.timings
+    # on a program, "cached" (the default, as the reference's) is the full gate
+    cached = build(prog, EngineSpec(engine="pallas", n_random=512), device="cpu")
+    assert cached.attestation == built.attestation and "gate_s" in cached.timings
+    assert cached.content_hash is None and cached.source is None
     with pytest.raises(ValueError):
-        EngineSpec(verify="cached")
+        EngineSpec(verify="maybe")
     with pytest.raises(ValueError):
         EngineSpec(require="groups")
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="bundle path"):
         build(prog.to_arrays(), device="cpu")
 
 
@@ -236,3 +240,51 @@ def test_launcher_end_to_end_cpu(capsys, argv, path):
     assert f"path={path}" in out
     assert "bit-exact gate PASSED: 2048 random" in out
     assert "2 batches x 256 rows" in out
+
+
+def test_launcher_artifact_serve_loop_and_tier(capsys, tmp_path):
+    """``--artifact`` compiles, gates and saves, then cold-starts from the
+    bundle (gate re-run, or trusted with ``--skip-verify-cached``) into the
+    scheduler's serve loop; ``--models`` serves both bundles through the
+    replica tier, every response checked against its model's interpreter."""
+    jsc, pid = str(tmp_path / "jsc.npz"), str(tmp_path / "pid.npz")
+    common = ["--device", "cpu", "--engine", "pallas", "--require-pallas"]
+    main(common + ["--artifact", jsc, "--batch", "64", "--gen", "1"])
+    out = capsys.readouterr().out
+    assert f"artifact saved: {jsc}" in out and "2 batches" not in out
+    main(common + ["--artifact", pid, "--model", "pid-hybrid", "--ctx", "40",
+                   "--lut-hidden", "4", "--batch", "64", "--gen", "1"])
+    assert f"artifact saved: {pid}" in capsys.readouterr().out
+    main(common + ["--artifact", jsc, "--batch", "64", "--gen", "1"])
+    out = capsys.readouterr().out
+    assert "no re-lowering" in out and "bit-exact gate PASSED: 2048 random" in out
+    main(common + ["--artifact", jsc, "--skip-verify-cached", "--serve-loop",
+                   "--rate", "0", "--requests", "96", "--max-batch", "16"])
+    out = capsys.readouterr().out
+    assert "gate SKIPPED: cached attestation (2048 random" in out
+    assert "[serve-loop] engine: 96 requests @ max-rate burst" in out
+    assert "all 96 responses bit-exact vs DaisProgram.run" in out
+    main(common + ["--models", f"{jsc},{pid}", "--skip-verify-cached",
+                   "--replicas", "2", "--rate", "0", "--requests", "128",
+                   "--max-batch", "16", "--max-queue", "1000"])
+    out = capsys.readouterr().out
+    assert "[tier] registered 'jsc'" in out and "[tier] registered 'pid'" in out
+    assert "[tier] up: 2 replicas on cpu (time-multiplexed)" in out
+    assert "[tier] 128 served @ max-rate burst" in out
+    assert "{'jsc': 64, 'pid': 64} — every response bit-exact" in out
+    main(["--device", "cpu", "--replicas", "2", "--rate", "0", "--requests", "32",
+          "--lut-dims", "6,4,2", "--lut-hidden", "4"])
+    assert "{'default': 32} — every response bit-exact" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="--dce applies at compile time"):
+        main(common + ["--artifact", jsc, "--dce"])
+
+
+def test_launcher_refuses_shed_oldest_outside_the_tier(capsys):
+    """``shed-oldest`` is a tier policy: the single-engine serve loop would
+    accept it and still reject at ``--max-queue``, so the launcher refuses
+    it unless ``--replicas`` or ``--models`` selects the tier."""
+    with pytest.raises(SystemExit) as exc:
+        main(["--device", "cpu", "--serve-loop", "--max-queue", "8",
+              "--overload-policy", "shed-oldest"])
+    assert exc.value.code == 2
+    assert "shed-oldest is a tier policy" in capsys.readouterr().err
