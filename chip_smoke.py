@@ -130,7 +130,23 @@ line:
    32 rows) and a 16->64->5 stack served through the gate, whose first
    stage's tables are read from global memory and second stage's staged in
    shared memory in one launch;
-14. the ``kernels`` JSON line, then the result line.
+14. the Pareto sweep (``launch/pareto.py``, ``examples/pareto_sweep.py``,
+   ``core/nla_baseline.py``): the launcher at its non-smoke defaults with
+   ``--engine pallas --verify-rtl`` (1500 steps of the JSC-HLF stack at B =
+   1024 on the einsum path, kernel B1, β 5e-7 -> 1e-3, graph chunks of 8
+   cut at 8 snapshots, each checkpointed, restored into a copy, evaluated,
+   lowered, DCE'd, served on B4 behind the gate and timed; the frontier;
+   the selected point's three-way RTL attestation, bundle and 1024 requests
+   on a 2-replica tier); every snapshot on B4's path, at least 3 points,
+   consistent frontier flags, β the schedule's float32 value on the card,
+   the bundle reloaded with its hash, best validation accuracy above 0.5;
+   β read in the captured chunks from the live step counter; the example
+   at its own constants; one CE step of a 16 -> 20 -> 5 NLA stack at B =
+   16600 on the card against the CPU; B4's launches equal, exactly, the
+   gates', warm-ups', bench rounds', RTL gate's and tier's; then B4 timed
+   on every snapshot's engine, 20 NLA Adam steps beside the JSC-HLF
+   LUT-Dense step at B = 16600, and one NLA step's device kernels;
+15. the ``kernels`` JSON line, then the result line.
 
 ``python3 chip_smoke.py --b1-timing``, ``--b2-timing``, ``--b3-timing`` and
 ``--b4-timing`` print only kernel B1's, B2's, B3's or B4's timings (and B2's,
@@ -140,11 +156,12 @@ result line, to compare two trees in one call.
 
 The launch counters are zeroed just before each path (phases 5-6, phase 8
 after its step-1 comparison, phase 9 before its timings, and phase 10 after
-its step-1 comparison and before its off-path checks, phases 11 and 12
-before the phase) and read just after it (phases 11 and 12 at their end,
-before their timings): each path must have launched each of its kernels, in
-phase 11 every generic-path batch none, and in phase 12 B4 exactly as many
-times as the phase's gates, buckets, batches and warm-ups add up to.  Float32 matmuls and convolutions run without
+its step-1 comparison and before its off-path checks, phases 11, 12 and 14
+before the phase) and read just after it (phases 11, 12 and 14 at their
+end, before their timings): each path must have launched each of its
+kernels, in phase 11 every generic-path batch none, and in phases 12 and 14
+B4 exactly as many times as the phase's gates, buckets, batches and
+warm-ups add up to.  Float32 matmuls and convolutions run without
 TF32.  Any failure exits non-zero with no result line; so does a machine
 without a CUDA device.
 """
@@ -3158,6 +3175,472 @@ def phase_synthetic(device):
           f"DaisProgram.run; plan: {b4_plan_text(chain, (4099,))}")
 
 
+PARETO_DIR = os.path.join(REPO, "build", "pareto")   # git-ignored
+PARETO_GRAPH_STEPS = 24        # the β-in-the-graph check: chunks of 8, a cut at 12
+NLA_BATCH = 16600              # the paper's Table 1 batch
+NLA_DIMS = (16, 20, 5)         # benchmarks/table1_train_time.py:99-100: F=6, 64, 2
+NLA_TIMED_STEPS = 20
+NLA_GRAD_RTOL = 1e-4
+
+
+class gc_pauses:
+    """Context manager collecting ``(generation, seconds)`` of every Python
+    garbage collection inside it (``gc.callbacks``)."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses, self._t0 = [], None
+
+        def cb(phase, info):
+            if phase == "start":
+                self._t0 = time.perf_counter()
+            elif self._t0 is not None:
+                self.pauses.append((info["generation"], time.perf_counter() - self._t0))
+
+        self._cb = cb
+        gc.callbacks.append(cb)
+        return self.pauses
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+
+def pareto_b4_launches(payload, state) -> int:
+    """B4 launches the sweep makes on the pallas path: per snapshot its gate
+    (``stack_gate_launches``), one warm-up and the bench rounds; the
+    selected point's RTL gate; the tier's warm-ups and request batches."""
+    from repro_torch.serve.scheduler import bucket_ladder
+
+    cfg = state["settings"]
+    n = sum(stack_gate_launches(p["verify"]) + 1 + cfg.bench_rounds
+            for p in payload["points"])
+    if state["rtl"] is not None:
+        n += stack_gate_launches(state["rtl"])
+    if payload["serve"] is not None:
+        n += payload["serve"]["tier"]["n_batches"] + len(bucket_ladder(cfg.max_batch))
+    return n
+
+
+def pareto_check(payload, state, args, device):
+    """The sweep's contract: every snapshot gated on B4's path, a frontier
+    of at least 3 points with consistent flags, β the float32 value of the
+    schedule at each snapshot's last step, the RTL verdict, the bundle."""
+    import torch
+    from repro_torch.core.ebops import BetaSchedule
+    from repro_torch.launch.pareto import beta_used
+    from repro_torch.serve.artifact import load_artifact
+
+    points = payload["points"]
+    check(len(points) >= 3, f"pareto: {len(points)} points")
+    for p in points:
+        check(p["verify"]["random"] > 0 and p["engine_path"] == "pallas",
+              f"pareto: step {p['step']} gate {p['verify']} on path {p['engine_path']}")
+    # on the frontier iff no other point costs no more and scores no less
+    # (of two points equal in both, the one listed first)
+    for k, p in enumerate(points):
+        beaten = any(j != k and q["est_luts"] <= p["est_luts"] and q["val_acc"] >= p["val_acc"]
+                     and (j < k or (q["est_luts"], q["val_acc"]) != (p["est_luts"], p["val_acc"]))
+                     for j, q in enumerate(points))
+        check(p["on_frontier"] == (not beaten),
+              f"pareto: step {p['step']} on_frontier {p['on_frontier']} is inconsistent")
+    betas = [p["beta"] for p in points]
+    check(all(a < b for a, b in zip(betas, betas[1:])), f"pareto: β not increasing {betas}")
+    sched = BetaSchedule(args.beta_init, args.beta_final, payload["steps"])
+    want = [beta_used(sched, p["step"] - 1, device) for p in points]
+    check(betas == want, f"pareto: β {betas} != the schedule's {want}")
+    cpu = np.asarray([beta_used(sched, p["step"] - 1, "cpu") for p in points], np.float32)
+    ulps = int(np.abs(np.asarray(betas, np.float32).view(np.int32).astype(np.int64)
+                      - cpu.view(np.int32).astype(np.int64)).max())
+    rtl = state["rtl"]
+    check(rtl is not None and rtl["verdict"] == "bit-exact" and rtl["engine_path"] == "pallas",
+          f"pareto: RTL attestation {rtl}")
+    serve = payload["serve"]
+    art = load_artifact(serve["bundle"])
+    check(art.content_hash == serve["content_hash"]
+          and art.attestation["rtl"]["verilog_sha256"] == rtl["verilog_sha256"]
+          and art.attestation["step"] == payload["selected_step"],
+          f"pareto: the bundle {serve['bundle']} reloads as {art.content_hash[:12]} "
+          f"(step {art.attestation.get('step')})")
+    top = max(p["val_acc"] for p in points)
+    check(top > 0.5, f"pareto: best val accuracy {top} (chance is 0.2)")
+    check(all(torch.isfinite(torch.tensor([p["val_acc"], p["test_acc"], p["ebops"]])).all()
+              for p in points), "pareto: a non-finite column")
+    return ulps
+
+
+def pareto_graph_beta(device):
+    """β inside the captured chunks: a graph-mode ``chunked_train`` of the
+    JSC stack at B = 1024 over ``PARETO_GRAPH_STEPS`` steps, β ramping
+    5e-7 -> 1e-3, chunks of 8 with a cut at 12 (k in {8, 4}); every step's
+    ``(loss - ce) / ebops`` is the β of its own step (the live counter),
+    within 1e-3, where the ramp moves β by a factor 1.39 a step."""
+    import torch
+    from repro_torch.core.ebops import BetaSchedule
+    from repro_torch.data.synthetic import jsc_hlf
+    from repro_torch.launch.pareto import _quantize, beta_used
+    from repro_torch.launch.serve import build_lut_stack
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.loop import chunked_train
+    from repro_torch.train.steps import TrainHParams, make_lut_train_step, named_params
+
+    x, y = jsc_hlf(SEED, 4096, "train")
+    x = _quantize(x)
+    rng = np.random.default_rng(SEED)
+    layers = build_lut_stack(list(JSC_DIMS), HIDDEN, device=device,
+                             generator=torch.Generator().manual_seed(SEED))
+    beta = BetaSchedule(5e-7, 1e-3, PARETO_GRAPH_STEPS)
+    step_fn, init_fn = make_lut_train_step(layers, TrainHParams(adam=AdamConfig(lr=LR),
+                                                                beta=beta))
+
+    def get_batch(_s):
+        idx = rng.integers(0, len(x), 1024)
+        return {"x": x[idx], "y": y[idx]}
+
+    worst, ks = 0.0, []
+    for res in chunked_train(step_fn, named_params(layers), init_fn(), get_batch, 0,
+                             PARETO_GRAPH_STEPS, chunk_steps=8, boundaries=(12,),
+                             mode="graph"):
+        ks.append(res.k)
+        for i in range(res.k):
+            m = {k: float(v[i]) for k, v in res.metrics.items()}
+            used = (m["loss"] - m["ce"]) / m["ebops"]
+            want = beta_used(beta, res.step + i, device)
+            worst = max(worst, abs(used / want - 1.0))
+    check(worst < 1e-3, f"pareto: β read in the graph is off by {worst} of the step's")
+    return ks, worst
+
+
+def pareto_nla_grads(device):
+    """One CE step's gradients of the 16 -> 20 -> 5 NLA stack at B = 16600
+    on the card and on the CPU from the same parameters and batch; returns
+    the layers on the card, the batch and the worst error over its
+    tensor's largest magnitude."""
+    import torch
+    from repro_torch.core.nla_baseline import NLALayer
+
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = [NLALayer(ci, co, device="cpu", generator=gen)
+           for ci, co in zip(NLA_DIMS[:-1], NLA_DIMS[1:])]
+    card = [copy.deepcopy(layer).to(device) for layer in cpu]
+    rng = np.random.default_rng(SEED + 40)
+    x = rng.normal(0, 1, (NLA_BATCH, NLA_DIMS[0])).astype(np.float32)
+    y = rng.integers(0, NLA_DIMS[-1], NLA_BATCH)
+
+    def grads(layers, dev):
+        h = torch.as_tensor(x, device=dev)
+        for layer in layers:
+            h, _ = layer(h)
+        ce = torch.nn.functional.cross_entropy(h, torch.as_tensor(y, device=dev))
+        params = [p for layer in layers for p in layer.parameters()]
+        return [g.cpu() for g in torch.autograd.grad(ce, params)], float(ce.detach())
+
+    got, ce_card = grads(card, device)
+    want, ce_cpu = grads(cpu, "cpu")
+    worst = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for g, w in zip(got, want))
+    check(worst <= NLA_GRAD_RTOL, f"nla: a gradient on the card is {worst} of its "
+          f"tensor's largest away from the CPU's")
+    return card, (x, y), worst, (ce_card, ce_cpu)
+
+
+def pareto_b1_check(payload, state, args, device):
+    """B1 at the shapes the sweep gives it, bit for bit against the plain
+    version: every fake-quant call of one train-mode forward on a batch of
+    the sweep's training rows (the train step's einsum path) and of the
+    eval forward on its validation rows, with the trained widths of the
+    selected snapshot and of the last (the most pruned).  The calls are
+    recorded at ``core.quant._fq_forward`` and replayed through
+    :func:`b1_check`; returns the number of calls held."""
+    import torch
+    from repro_torch.ckpt.store import CheckpointStore
+    from repro_torch.core import quant
+    from repro_torch.data.synthetic import jsc_hlf
+    from repro_torch.launch.pareto import _quantize
+    from repro_torch.launch.serve import build_lut_stack
+
+    cfg = state["settings"]
+    xtr, _ = jsc_hlf(args.seed, cfg.n_train, "train")
+    xval, _ = jsc_hlf(args.seed, cfg.n_eval, "val")
+    rows = np.random.default_rng(SEED + 41).integers(0, cfg.n_train, cfg.batch)
+    inputs = (("train", torch.as_tensor(_quantize(xtr)[rows], device=device)),
+              ("eval", torch.as_tensor(_quantize(xval), device=device)))
+    store = CheckpointStore(args.ckpt_dir)
+    original, calls = quant._fq_forward, []
+
+    def record(x, f, i, signed, overflow):
+        calls.append((x, f, i, signed, overflow))
+        return original(x, f, i, signed, overflow)
+
+    cases = []
+    quant._fq_forward = record
+    try:
+        for snap in sorted({payload["selected_step"], payload["points"][-1]["step"]}):
+            layers = build_lut_stack(list(cfg.dims), args.hidden, device=device,
+                                     generator=torch.Generator().manual_seed(args.seed))
+            store.restore(layers, step=snap)
+            for mode, x in inputs:
+                for layer in layers:
+                    layer.train(mode == "train")
+                calls.clear()
+                with torch.no_grad():
+                    h = x
+                    for layer in layers:
+                        h, _ = layer(h, fused=False) if mode == "train" else layer(h)
+                check(len(calls) == 2 * len(layers),
+                      f"pareto B1: {len(calls)} fake-quant calls in a {mode} forward")
+                cases += [(f"pareto step {snap} {mode} layer {k // 2} "
+                           f"{'in' if k % 2 == 0 else 'out'}", *c)
+                          for k, c in enumerate(calls)]
+    finally:
+        quant._fq_forward = original
+    torch.cuda.synchronize()
+    for case in cases:
+        b1_check(*case)
+    return len(cases)
+
+
+def phase_pareto(device):
+    """Phase 14, the main path of the Pareto sweep: the launcher at its
+    non-smoke defaults with ``--engine pallas --verify-rtl``, β in the
+    graph, the example at its own constants and the NLA gradients on the
+    card against the CPU.  Returns what the timings use and the launch
+    counts read at its end."""
+    import shutil
+
+    import torch
+    from repro_torch.examples import pareto_sweep
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pareto
+
+    t_phase = time.monotonic()
+    shutil.rmtree(PARETO_DIR, ignore_errors=True)
+    args = pareto.build_argparser().parse_args([
+        "--engine", "pallas", "--verify-rtl", "--device", str(device),
+        "--out", os.path.join(PARETO_DIR, "pareto.json"),
+        "--ckpt-dir", os.path.join(PARETO_DIR, "ckpt")])
+    with gc_pauses() as pauses:
+        payload, state = pareto.sweep(args)
+    sweep_s = time.monotonic() - t_phase
+    ulps = pareto_check(payload, state, args, device)
+    t0 = time.monotonic()
+    ks, beta_err = pareto_graph_beta(device)
+    graph_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    example = pareto_sweep.main([])
+    example_s = time.monotonic() - t0
+    snaps = example["snapshots"]
+    check(len(snaps) == pareto_sweep.STEPS // pareto_sweep.SNAP_EVERY
+          and all(np.isfinite(s[2]) and 0.0 <= s[4] <= 1.0 for s in snaps)
+          and all(a[1] < b[1] for a, b in zip(snaps, snaps[1:])),
+          f"pareto example: snapshots {snaps}")
+    t0 = time.monotonic()
+    nla_layers, nla_batch, nla_err, nla_ce = pareto_nla_grads(device)
+    nla_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = pareto_b4_launches(payload, state)
+    check(counts["lut_serve"] == want and counts["fake_quant"] > 0
+          and counts["lut_dense"] == 0 and counts["lut_dense_bwd"] == 0,
+          f"pareto: launches {counts}, B4 expected {want}")
+    # held after the count is read: the comparison's launches are not the path's
+    n_b1 = pareto_b1_check(payload, state, args, device)
+    cfg = state["settings"]
+    caps = [(k, dt) for _s, k, dt, _h, compiled in state["chunks"] if compiled]
+    print(f"[pareto] sweep: {payload['steps']} steps at B={payload['batch']} in "
+          f"{payload['train_wall_s']:.4f}s ({payload['steps'] / payload['train_wall_s']:.2f} "
+          f"steps/s), {len(state['chunks'])} chunks, captures "
+          + ", ".join(f"k={k} {dt:.4f}s" for k, dt in caps)
+          + f"; β column equal to the schedule on the card (CPU within {ulps} ulps); "
+          f"sweep done in {sweep_s:.1f}s")
+    print(f"[pareto] B1 at the sweep's shapes: {n_b1} fake-quant calls of train-mode "
+          f"forwards at B={cfg.batch} and eval forwards at B={cfg.n_eval}, with the "
+          f"selected and the last snapshot's widths, identical to the plain version bit "
+          f"for bit")
+    longest = {g: max((d for gg, d in pauses if gg == g), default=0.0) for g in range(3)}
+    print(f"[pareto] the sweep's Python garbage collections by generation: "
+          + ", ".join(f"gen {g} x{sum(1 for gg, _d in pauses if gg == g)} longest "
+                      f"{longest[g] * 1e3:.3f} ms" for g in range(3))
+          + f"; {sum(d for _g, d in pauses) * 1e3:.3f} ms in all")
+    print(f"[pareto] β in the graph: {PARETO_GRAPH_STEPS} graph steps in chunks {ks}, every "
+          f"step's (loss - ce) / ebops within {beta_err:.2e} of its own β ({graph_s:.1f}s)")
+    serve = payload["serve"]
+    print(f"[pareto] selected step {payload['selected_step']}: bundle "
+          f"{serve['content_hash'][:12]} reloads with its hash; RTL "
+          f"{state['rtl']['verdict']} three ways over {state['rtl']['random']} rows "
+          f"(sha256 {state['rtl']['verilog_sha256'][:12]}); tier {serve['n_requests']} "
+          f"requests on {serve['tier']['n_replicas']} replicas: p50 "
+          f"{serve['engine']['p50_ms']:.4f} ms, p99 {serve['engine']['p99_ms']:.4f} ms, "
+          f"{serve['engine']['rows_per_s']:.1f} rows/s, {serve['tier']['n_batches']} batches, "
+          f"{serve['tier']['n_stolen']} stolen; interpreter {serve['interp_rows_per_s']:.1f} "
+          f"rows/s; every response bit-exact")
+    print(f"[pareto] example: {example['steps']} steps at B={example['batch']} in "
+          f"{example['wall_s']:.4f}s ({example['steps'] / example['wall_s']:.2f} steps/s); "
+          "frontier (LUTs, val, test): " + "; ".join(
+              f"{luts:.0f} {va:.4f} {ta:.4f}" for _s, _b, _e, luts, va, ta in example["pareto"])
+          + f" ({example_s:.1f}s)")
+    print(f"[pareto] nla {NLA_DIMS} at B={NLA_BATCH}: CE {nla_ce[0]:.6f} on the card, "
+          f"{nla_ce[1]:.6f} on the CPU; every gradient within {nla_err:.3e} of its tensor's "
+          f"largest ({nla_s:.1f}s)")
+    print(f"[pareto] launches {counts}: B4 {counts['lut_serve']} = {len(payload['points'])} "
+          f"snapshots x (gate + 1 warm-up + {cfg.bench_rounds} bench rounds) + RTL gate + "
+          f"tier batches and warm-ups; nothing ran a plain version; phase done in "
+          f"{time.monotonic() - t_phase:.1f}s")
+    return {"payload": payload, "state": state, "nla": (nla_layers, nla_batch)}, counts
+
+
+def b4_chain_tables_global(packed, dtype, device):
+    """``packed`` lowered with every stage's tables left in global memory:
+    a shared-memory budget that holds the constants and tiles of
+    ``MIN_TILE_ROWS`` rows and no table, to time against the plan that
+    stages the tables in each block."""
+    from repro_torch.kernels import lut_serve_cuda as lsc
+
+    original = lsc.launch_plan
+
+    def no_tables(packed, itemsize, consts_bytes, smem_budget=lsc.SMEM_PER_BLOCK):
+        full = original(packed, itemsize, consts_bytes, smem_budget)
+        return original(packed, itemsize, consts_bytes,
+                        consts_bytes + 16 + lsc.MIN_TILE_ROWS * full.row_bytes)
+
+    lsc.launch_plan = no_tables
+    try:
+        chain = lsc.PackedChain(packed, dtype, device)
+    finally:
+        lsc.launch_plan = original
+    check(all(off < 0 for off in chain.plan.table_soff),
+          f"B4: a table stayed in shared memory: {chain.plan.table_soff}")
+    return chain
+
+
+def pareto_timings(pareto_run, device, line):
+    """After the phase's launch count: B4 a batch on every snapshot's engine
+    (CUDA events) beside the launcher's host ``engine_us``; then 20 Adam
+    steps of the NLA stack at B = 16600 beside the JSC-HLF LUT-Dense step of
+    phase 8 at the same B, and one profiled NLA step's device kernels."""
+    import torch
+    from repro_torch.kernels.lut_serve import (_ranges, compile_program, compose_fused_stages,
+                                               input_code_bounds)
+    from repro_torch.core.lower import compile_sequential
+    from repro_torch.kernels.lut_serve_cuda import PackedChain, _fast_mask, pack_stages, run_chain
+    from repro_torch.launch.serve import build_lut_stack
+    from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
+    from repro_torch.train.steps import make_lut_train_step
+
+    payload, state = pareto_run["payload"], pareto_run["state"]
+    rows = []
+    for p in payload["points"]:
+        opt_prog, _gate, _prog, engine = state["compiled"][p["step"]]
+        lo, hi = input_code_bounds(opt_prog)
+        codes = torch.as_tensor(np.random.default_rng(SEED).integers(
+            lo, hi + 1, (p["bench_batch"], len(lo)), np.int64), device=device).to(engine.dtype)
+        # the engine's chain made again as compile_program makes it, for its plan
+        stages, _why = compose_fused_stages(opt_prog, ranges=_ranges(opt_prog))
+        packed = pack_stages(stages, engine.dtype)
+        lanes = sorted({str(st.table.dtype) for st in packed.stages if st.table is not None})
+        lanes += [f"fast-path masks {[_fast_mask(st) for st in packed.stages]}, in-shifts "
+                  f"{[st.in_shift is not None for st in packed.stages]}"]
+        plan = b4_plan_text(PackedChain(packed, engine.dtype, device), (p["bench_batch"],))
+        glob = b4_chain_tables_global(packed, engine.dtype, device)
+        check(torch.equal(run_chain(glob, codes), engine._runner(codes)),
+              f"pareto: step {p['step']}'s chain with global tables differs from its engine")
+        # the same program packed with full lanes, as PR 21's narrow=False rows
+        wide = compile_program(opt_prog, device=device, engine="pallas", narrow=False)
+        wide_codes = codes.to(wide.dtype)
+        check(wide.path == "pallas" and torch.equal(
+            wide._runner(wide_codes).to(torch.int64), engine._runner(codes).to(torch.int64)),
+            f"pareto: step {p['step']}'s full-lane chain differs from its engine")
+        rows.append((p, cuda_ms(lambda: engine._runner(codes)), engine.dtype, lanes,
+                     len(packed.stages), plan, cuda_ms(lambda: wide._runner(wide_codes)),
+                     wide.dtype, cuda_ms(lambda: run_chain(glob, codes))))
+    # the untrained JSC-HLF chain of phases 5-7, the same three ways, in this call
+    untrained = build_lut_stack(list(JSC_DIMS), HIDDEN, device=device,
+                                generator=torch.Generator().manual_seed(SEED))
+    for layer in untrained:
+        layer.eval()
+    u_prog = compile_sequential(untrained, IN_F, IN_I)
+    u_eng = compile_program(u_prog, device=device, engine="pallas")
+    u_stages, _why = compose_fused_stages(u_prog, ranges=_ranges(u_prog))
+    u_packed = pack_stages(u_stages, u_eng.dtype)
+    lo, hi = input_code_bounds(u_prog)
+    u_codes = torch.as_tensor(np.random.default_rng(SEED).integers(
+        lo, hi + 1, (1024, len(lo)), np.int64), device=device).to(u_eng.dtype)
+    u_glob = b4_chain_tables_global(u_packed, u_eng.dtype, device)
+    check(torch.equal(run_chain(u_glob, u_codes), u_eng._runner(u_codes)),
+          "pareto: the untrained chain with global tables differs from its engine")
+    u_ms = cuda_ms(lambda: u_eng._runner(u_codes))
+    u_glob_ms = cuda_ms(lambda: run_chain(u_glob, u_codes))
+    print(f"[pareto-time] {line}")
+    print(f"[pareto-time] untrained JSC-HLF chain (phases 5-7) at B=1024: B4 {u_ms:.5f} device "
+          f"ms a batch, tables in global memory {u_glob_ms:.5f} ms; {u_eng.dtype} compute, "
+          f"fast-path masks {[_fast_mask(st) for st in u_packed.stages]}, in-shifts "
+          f"{[st.in_shift is not None for st in u_packed.stages]}, "
+          f"{u_packed.table_bytes()} table bytes; plan: "
+          f"{b4_plan_text(PackedChain(u_packed, u_eng.dtype, device), (1024,))}")
+    for p, ms, dtype, lanes, n_stages, plan, wide_ms, wide_dtype, glob_ms in rows:
+        print(f"[pareto-time] step {p['step']:5d}  β={p['beta']:.6e}  val={p['val_acc']:.4f} "
+              f"test={p['test_acc']:.4f}  EBOPs={p['ebops']:.1f}  est.LUTs="
+              f"{p['est_luts']:.1f}  LLUT live {p['n_llut_live']}/{p['n_llut']}  "
+              f"instrs {p['n_instrs_dce']}/{p['n_instrs']}  on_frontier={p['on_frontier']}  "
+              f"{p['packed_table_bytes']} table bytes, "
+              f"B4 {ms:.5f} device ms a batch of {p['bench_batch']}, host "
+              f"{p['engine_us']:.1f} us (best of {state['settings'].bench_rounds})")
+        print(f"[pareto-time] step {p['step']:5d}  B4 {dtype} compute, "
+              f"{n_stages} stages, lanes {lanes}; full lanes (narrow=False, {wide_dtype}) "
+              f"{wide_ms:.5f} device ms a batch; tables in global memory {glob_ms:.5f} ms; "
+              f"plan: {plan}")
+
+    layers, (x, y) = pareto_run["nla"]
+    params = {f"l{k}/{n}": t for k, layer in enumerate(layers)
+              for n, t in layer.named_parameters()}
+    opt = adam_init({k: t.detach() for k, t in params.items()})
+    xd = torch.as_tensor(x, device=device)
+    yd = torch.as_tensor(y, device=device)
+    acfg = AdamConfig(lr=1e-3)
+
+    def nla_step():
+        nonlocal opt
+        h = xd
+        for layer in layers:
+            h, _ = layer(h)
+        ce = torch.nn.functional.cross_entropy(h, yd)
+        g = torch.autograd.grad(ce, list(params.values()))
+        new, opt, _m = adam_update({k: t.detach() for k, t in params.items()},
+                                   dict(zip(params, g)), opt, acfg)
+        with torch.no_grad():
+            for k, t in params.items():
+                t.copy_(new[k])
+
+    nla_ms = cuda_ms(nla_step, iters=NLA_TIMED_STEPS, warmup=2)
+    jsc_layers, hp, data = train_setup(device)
+    jsc_step, jsc_init = make_lut_train_step(jsc_layers, hp)
+    jsc_opt = jsc_init()
+    k = [0]
+
+    def lut_step():
+        nonlocal jsc_opt
+        jsc_opt, _m = jsc_step(jsc_opt, train_batch(data, k[0] % TRAIN_STEPS))
+        k[0] += 1
+
+    lut_ms = cuda_ms(lut_step, iters=NLA_TIMED_STEPS, warmup=2)
+    names = device_kernels(nla_step)
+    gathers = [n for n in names if "index" in n.lower() or "gather" in n.lower()]
+    counted = {}
+    for n in names:
+        counted[n] = counted.get(n, 0) + 1
+    top = sorted(counted.items(), key=lambda kv: -kv[1])
+    print(f"[pareto-time] nla {NLA_DIMS} (F=6, width 64, depth 2) at B={NLA_BATCH}: "
+          f"{nla_ms:.4f} device ms/step over {NLA_TIMED_STEPS} Adam steps (CUDA events), "
+          f"beside the JSC-HLF LUT-Dense fused step at the same B: {lut_ms:.4f} ms/step "
+          f"(ratio {nla_ms / lut_ms:.3f}); one profiled NLA step: {len(names)} device "
+          f"kernels, {len(gathers)} gather/index ({sorted(set(gathers))})")
+    print("[pareto-time] nla step kernels by name: " + "; ".join(
+        f"{n[:60]} x{c}" for n, c in top))
+    return nla_ms, lut_ms
+
+
 def main_b1_timing() -> int:
     """``--b1-timing``: only B1's cold-L2 timings (the same harness for two
     trees, run from each tree's root); prints no result line."""
@@ -3291,10 +3774,11 @@ def main() -> int:
              "loop": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
              "pid": ("fake_quant", "lut_serve"),
              "tooling": ("lut_serve",),
-             "stack": ("lut_serve",)}
+             "stack": ("lut_serve",),
+             "pareto": ("fake_quant", "lut_serve")}
     launches = {}
     try:
-        phase_device()
+        card = phase_device()
         phase_b1(device, report)
         phase_b2(device, report)
         phase_b3(device, report)
@@ -3328,11 +3812,14 @@ def main() -> int:
         ops.reset_launch_counts()                      # path 6: the serving stack
         stack, launches["stack"] = phase_stack(device, train_state[0], pid_layers)
         stack_timings(stack, report)
+        phase_synthetic(device)
+        ops.reset_launch_counts()                      # path 7: the Pareto sweep
+        pareto_run, launches["pareto"] = phase_pareto(device)
         for path, names in paths.items():
             check(all(launches[path][n] > 0 for n in names),
                   f"the {path} path skipped a kernel: launches {launches[path]}")
             print(f"[main-path] {path}: kernel launches {launches[path]}")
-        phase_synthetic(device)
+        pareto_timings(pareto_run, device, card)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -40,6 +40,44 @@ def jsc_hlf(seed: int, n: int, split: str = "train") -> Tuple[np.ndarray, np.nda
     return x.astype(np.float32), y.astype(np.int32)
 
 
+# --------------------------------------------------------------- JSC PLF set
+def jsc_plf(seed: int, n: int, n_particles: int = 32, n_features: int = 16,
+            split: str = "train") -> Tuple[np.ndarray, np.ndarray]:
+    """(N, F) padded particle clouds with class-dependent (pT, η, φ) shapes."""
+    rng = _rng(seed, 10 + {"train": 0, "val": 1, "test": 2}[split])
+    y = rng.integers(0, N_JET_CLASSES, size=n)
+    n_real = rng.integers(n_particles // 4, n_particles + 1, size=n)
+    pt = rng.exponential(1.0 + 0.4 * y[:, None], size=(n, n_particles))
+    width = 0.3 + 0.15 * (y[:, None] % 3)
+    eta = rng.normal(0, width, size=(n, n_particles))
+    phi = rng.normal(0, width, size=(n, n_particles))
+    feats = [pt, eta, phi]
+    extra = rng.normal(0, 1, size=(n, n_particles, max(n_features - 3, 0)))
+    extra[..., 0::2] *= (0.5 + 0.2 * y[:, None, None])
+    x = np.concatenate([np.stack(feats, -1), extra], axis=-1)[:, :, :n_features]
+    mask = np.arange(n_particles)[None, :] < n_real[:, None]
+    x = np.where(mask[..., None], x, 0.0)  # zero-padding, as in the dataset
+    order = np.argsort(-np.where(mask, pt, -1.0), axis=1)  # padded slots last
+    x = np.take_along_axis(x, order[..., None], axis=1)
+    return x.astype(np.float32), y.astype(np.int32)
+
+
+# -------------------------------------------------------------- TGC tracking
+def tgc_muon(seed: int, n: int, split: str = "train") -> Tuple[np.ndarray, np.ndarray]:
+    """7×50 binary hit maps with a linear-track angle target (mrad)."""
+    rng = _rng(seed, 20 + {"train": 0, "val": 1, "test": 2}[split])
+    angle = rng.uniform(-30.0, 30.0, size=n)              # mrad, paper cut-off
+    layers = np.arange(7)[None, :]
+    x0 = rng.uniform(10, 40, size=(n, 1))
+    hit_pos = x0 + angle[:, None] * 0.3 * layers + rng.normal(0, 0.6, (n, 7))
+    idx = np.clip(np.round(hit_pos), 0, 49).astype(np.int64)
+    hits = np.zeros((n, 7, 50), np.float32)
+    hits[np.arange(n)[:, None], layers, idx] = 1.0
+    noise = rng.random((n, 7, 50)) < 0.02
+    hits = np.maximum(hits, noise.astype(np.float32))
+    return hits.reshape(n, 350), angle.astype(np.float32)
+
+
 # ------------------------------------------------------------- CEPC PID wave
 def cepc_waveform(seed: int, n: int, length: int = 3000,
                   split: str = "train") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -9,7 +9,9 @@ torch's generators differ.  DAIS programs cross as
 ``DaisProgram.to_arrays()`` / ``from_arrays()`` (wire format v2), which the
 port reads unchanged.
 
-An ``HGQDense`` crosses with the keys ``w``, ``b``, ``q_w`` and ``q_a``.  A
+An ``HGQDense`` crosses with the keys ``w``, ``b``, ``q_w`` and ``q_a``, an
+``NLALayer`` with ``map_logits`` and the nested ``leaf`` / ``root`` MLP
+dicts.  A
 conv wrapper (``LUTConv1D/2D``, ``HGQConv1D``) crosses as its ``dense``
 layer's dict, as the reference's conv parameters are its dense's.  The PID
 hybrid crosses as the reference example's ``{"front", "lc1", "lc2",
@@ -31,9 +33,8 @@ import torch
 
 from repro_torch.core.hgq_layers import HGQDense
 from repro_torch.core.lut_layers import LUTDense
+from repro_torch.core.nla_baseline import NLALayer
 from repro_torch.models.pid import PID_KEYS
-
-_QUANTIZERS = ("q_in", "q_out", "q_w", "q_a")
 
 
 def _dense_of(layer):
@@ -54,7 +55,7 @@ def _entries(module):
 def _from_numpy(module, d: Dict):
     want = {(k, s) for k, s, _ in _entries(module)}
     got = {(k, s) for k, v in d.items()
-           for s in (v if k in _QUANTIZERS else [None])}
+           for s in (v if isinstance(v, dict) else [None])}
     if want != got:
         raise KeyError(f"parameter keys differ: missing {sorted(want - got, key=str)}, "
                        f"unexpected {sorted(got - want, key=str)}")
@@ -106,6 +107,19 @@ def hgq_dense_params_from_numpy(module: HGQDense, d: Dict) -> HGQDense:
 
 def hgq_dense_params_to_numpy(module: HGQDense) -> Dict:
     _check_type(module, HGQDense)
+    return _to_numpy(module)
+
+
+def nla_params_from_numpy(module: NLALayer, d: Dict) -> NLALayer:
+    """Load a reference ``NLALayer`` parameter dict (``map_logits``, and
+    ``leaf`` / ``root`` each with ``w0, b0, ..., w_out, b_out``) into
+    ``module``; keys and shapes must match exactly."""
+    _check_type(module, NLALayer)
+    return _from_numpy(module, d)
+
+
+def nla_params_to_numpy(module: NLALayer) -> Dict:
+    _check_type(module, NLALayer)
     return _to_numpy(module)
 
 

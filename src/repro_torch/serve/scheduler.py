@@ -238,7 +238,7 @@ def compare_under_load(prog, engine, codes, config: "ServeConfig",
     return rows
 
 
-def drive_open_loop(batcher, codes, rate: float):
+def drive_open_loop(batcher, codes, rate: float, *, submit=None):
     """Submit each row of ``codes`` on an open-loop arrival schedule.
 
     ``rate`` requests/s, independent of completions (open loop, so queueing
@@ -254,11 +254,16 @@ def drive_open_loop(batcher, codes, rate: float):
     rate is measured and reported next to the requested one instead of
     being assumed.
 
+    ``submit`` overrides the submit callable (default ``batcher.submit``,
+    and ``batcher`` may then be None): a tier caller passes a
+    model-routing closure.
+
     Returns ``(results, info)`` where ``info`` is a dict with ``wall_s``
     (submit + drain), ``requested_rate``, ``achieved_rate`` (submission
     side; equals the burst rate when ``rate <= 0``), ``n_requests``, and
     ``max_late_ms`` (worst single-submit lag behind its scheduled instant).
     """
+    submit = submit if submit is not None else batcher.submit
     n = len(codes)
     schedule = np.arange(n) / rate if rate > 0 else np.zeros(n)
     t0 = time.monotonic()
@@ -271,7 +276,7 @@ def drive_open_loop(batcher, codes, rate: float):
             time.sleep(delay)
         else:
             max_late = max(max_late, -delay)
-        futures.append(batcher.submit(row))
+        futures.append(submit(row))
     t_last = time.monotonic()
     out = np.stack([f.result(timeout=_RESULT_TIMEOUT_S) for f in futures])
     wall = time.monotonic() - t0

@@ -860,3 +860,47 @@ def test_tier_first_calls_race_load_once_and_count_every_launch(device, tmp_path
     assert not any(t.is_alive() for t in threads)
     torch.cuda.synchronize()
     assert ops.launch_counts()["lut_serve"] - before == 8 * 250
+
+
+def test_pareto_smoke_on_card_launches_b4_for_every_engine_call(device, tmp_path):
+    """The port's Pareto launcher, ``--smoke --engine pallas --verify-rtl``,
+    on the card: every snapshot gated on B4's path, β the schedule's value
+    on the card, the served bundle's tier responses bit-exact, and B4's
+    launches exactly the gates, warm-ups, bench rounds and tier batches."""
+    from chip_smoke import pareto_b4_launches
+    from repro_torch.core.ebops import BetaSchedule
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pareto
+
+    args = pareto.build_argparser().parse_args([
+        "--smoke", "--engine", "pallas", "--verify-rtl", "--out", str(tmp_path / "p.json"),
+        "--ckpt-dir", str(tmp_path / "ckpt")])
+    ops.reset_launch_counts()
+    payload, state = pareto.sweep(args)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert len(payload["points"]) == 3
+    assert all(p["engine_path"] == "pallas" and p["verify"]["random"] > 0
+               for p in payload["points"])
+    sched = BetaSchedule(args.beta_init, args.beta_final, payload["steps"])
+    assert [p["beta"] for p in payload["points"]] == \
+        [pareto.beta_used(sched, p["step"] - 1, device) for p in payload["points"]]
+    assert state["rtl"]["verdict"] == "bit-exact" and state["rtl"]["engine_path"] == "pallas"
+    assert counts["lut_serve"] == pareto_b4_launches(payload, state)
+    assert counts["fake_quant"] > 0 and counts["lut_dense"] == counts["lut_dense_bwd"] == 0
+    assert any(c[4] for c in state["chunks"])            # graph chunks were captured
+
+
+def test_nla_step_on_card_matches_cpu(device):
+    """One CE step's gradients of the NLA stack at B = 4096 on the card
+    within 1e-4 of each tensor's largest against the CPU's."""
+    import chip_smoke
+
+    old = chip_smoke.NLA_BATCH
+    chip_smoke.NLA_BATCH = 4096
+    try:
+        _layers, _batch, worst, (ce_card, ce_cpu) = chip_smoke.pareto_nla_grads(device)
+    finally:
+        chip_smoke.NLA_BATCH = old
+    assert worst <= chip_smoke.NLA_GRAD_RTOL
+    assert ce_card == pytest.approx(ce_cpu, rel=1e-5)

@@ -341,6 +341,34 @@ def test_drive_open_loop(rate):
         assert 0 < info["achieved_rate"] <= 2 * rate
 
 
+@pytest.mark.parametrize("rate", [0.0, 2000.0])
+def test_drive_open_loop_submits_through_a_tier(jsc, rate):
+    """``submit=`` routes every row through a 2-replica tier (``batcher`` is
+    None), as the Pareto launcher drives it: results in submission order,
+    each bit-exact against ``DaisProgram.run``."""
+    from repro_torch.serve.api import EngineSpec, serve
+    from repro_torch.serve.tier import TierConfig
+
+    prog, _ref, codes = jsc
+    tier = serve({"jsc": prog}, EngineSpec(engine="pallas", require="pallas", n_random=64),
+                 TierConfig(n_replicas=2, serve=ServeConfig(max_batch=16, max_delay_ms=1.0)),
+                 device="cpu")
+    seen = []
+
+    def submit(row):
+        seen.append(row)
+        return tier.submit(row, "jsc")
+
+    try:
+        out, info = drive_open_loop(None, codes[:96], rate, submit=submit)
+    finally:
+        tier.stop()
+    assert len(seen) == 96 and all(np.array_equal(a, b) for a, b in zip(seen, codes))
+    np.testing.assert_array_equal(np.asarray(out, np.int64), prog.run(codes[:96]))
+    assert info["n_requests"] == 96 and info["requested_rate"] == rate
+    assert tier.stats().n_batches >= 96 // 16
+
+
 def test_stats_dataclass():
     cfg = ServeConfig(max_batch=8, max_delay_ms=1.0, warmup=False)
     mb = MicroBatcher(EchoEngine(), cfg)
