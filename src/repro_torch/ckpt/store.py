@@ -16,9 +16,13 @@
   are stored beside the arrays;
 * **retention** -- keep the last N checkpoints, delete older ones.
 
-The port's parameters live in the layers (``nn.Module``\\ s), so ``save`` and
-``restore`` take the stack of layers where the reference takes its
-parameter tree, and ``restore`` loads into those layers in place.
+The port's parameters live in modules, so ``save`` and ``restore`` take
+the modules (a stack of layers, or a ``DecoderLM``) where the reference
+takes its parameter tree, and ``restore`` loads into them in place.  They
+cross to and from the reference's tree through
+``interop.checkpoint_tree`` / ``load_checkpoint_tree``, so an LM's arrays
+are the reference's flat keys too (``params/blocks/wq``,
+``opt/m/blocks/wq``, ``opt/step``).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from __future__ import annotations
 import json
 import os
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -57,13 +61,6 @@ def _unflatten_like(ref_tree, arrays: Dict[str, np.ndarray], prefix: str = ""):
     return arr
 
 
-def _tree(layers, opt_state) -> dict:
-    tree = {"params": interop.stack_params_to_numpy(layers)}
-    if opt_state is not None:
-        tree["opt"] = interop.opt_state_to_numpy(layers, opt_state)
-    return tree
-
-
 class CheckpointStore:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -72,10 +69,11 @@ class CheckpointStore:
         self._thread: Optional[threading.Thread] = None
 
     # ---------------------------------------------------------------- save
-    def save(self, step: int, params: Sequence[torch.nn.Module], opt_state=None,
+    def save(self, step: int, params, opt_state=None,
              extra: Optional[dict] = None, blocking: bool = False) -> None:
-        """Save the stack ``params`` (its layers) and the Adam state at ``step``."""
-        arrays = _flatten(_tree(params, opt_state))
+        """Save ``params`` (a stack of layers or a ``DecoderLM``) and its Adam
+        state at ``step``."""
+        arrays = _flatten(interop.checkpoint_tree(params, opt_state))
         manifest = {"step": int(step), **(extra or {})}
         self.wait()
         self._thread = threading.Thread(
@@ -121,16 +119,16 @@ class CheckpointStore:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, ref_params: Sequence[torch.nn.Module], ref_opt=None,
+    def restore(self, ref_params, ref_opt=None,
                 step: Optional[int] = None, device=None):
-        """Load a checkpoint into the layers ``ref_params``; returns ``(layers,
-        opt_state, manifest)``.
+        """Load a checkpoint into ``ref_params`` (a stack of layers or a
+        ``DecoderLM``); returns ``(layers or model, opt_state, manifest)``.
 
-        Every key and shape is checked against the layers (and against
-        ``ref_opt``, the Adam state of the layers, when given) before any is
-        loaded.  With ``device`` the layers move there first; the Adam state
-        is made on the layers' device.  ``opt_state`` is None without
-        ``ref_opt``, as in the reference.
+        Every key and shape is checked against the modules (and against
+        ``ref_opt``, their Adam state, when given) before any is loaded.
+        With ``device`` the modules move there first; the Adam state is made
+        on their device.  ``opt_state`` is None without ``ref_opt``, as in
+        the reference.
         """
         self.wait()
         if step is None:
@@ -142,11 +140,11 @@ class CheckpointStore:
             arrays = {k: z[k] for k in z.files}
         with open(os.path.join(self.dir, name + ".json")) as f:
             manifest = json.load(f)
-        layers = list(ref_params)
+        one = isinstance(ref_params, torch.nn.Module)
+        params = ref_params if one else list(ref_params)
         if device is not None:
-            for layer in layers:
-                layer.to(device)
-        tree = _unflatten_like(_tree(layers, ref_opt), arrays)
-        interop.stack_params_from_numpy(layers, tree["params"])
-        opt = interop.opt_state_from_numpy(layers, tree["opt"]) if "opt" in tree else None
-        return layers, opt, manifest
+            for m in [params] if one else params:
+                m.to(device)
+        tree = _unflatten_like(interop.checkpoint_tree(params, ref_opt), arrays)
+        opt = interop.load_checkpoint_tree(params, tree)
+        return params, opt, manifest

@@ -1,5 +1,5 @@
-"""Deterministic synthetic data of the paper tasks (port of
-``repro.data.synthetic``; numpy only, the same numbers as the reference).
+"""Deterministic synthetic data of the paper tasks and the LM stream (port
+of ``repro.data.synthetic``; numpy only, the same numbers as the reference).
 
 Every generator is a pure function of its seed and split, so any process can
 regenerate any batch.
@@ -7,13 +7,38 @@ regenerate any batch.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
 
 def _rng(seed: int, step: int, host: int = 0) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step, host]))
+
+
+# ------------------------------------------------------------------ LM text
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+             host: int = 0, n_hosts: int = 1) -> Dict[str, np.ndarray]:
+    """Host-local slice of the global batch: (batch/n_hosts, seq) tokens+labels.
+
+    A Zipf unigram mixture with an induced bigram ("grammar": x_{t+1}
+    depends on x_t), so the CE loss has learnable signal; a pure function
+    of (seed, step, host)."""
+    if n_hosts < 1:
+        raise ValueError(f"n_hosts must be >= 1, got {n_hosts}")
+    if batch % n_hosts:
+        raise ValueError(f"global batch {batch} is not divisible by "
+                         f"n_hosts {n_hosts}; remainder rows would be "
+                         f"silently dropped")
+    local = batch // n_hosts
+    rng = _rng(seed, step, host)
+    base = rng.zipf(1.3, size=(local, seq)).astype(np.int64) % vocab
+    shiftd = (base * 31 + 7) % vocab
+    mask = rng.random((local, seq)) < 0.5
+    tokens = np.where(mask, base, np.roll(shiftd, 1, axis=1)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = 0
+    return {"tokens": tokens, "labels": labels}
 
 
 # --------------------------------------------------------- JSC HLF (paper V-C)

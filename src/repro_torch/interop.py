@@ -17,11 +17,18 @@ layer's dict, as the reference's conv parameters are its dense's.  The PID
 hybrid crosses as the reference example's ``{"front", "lc1", "lc2",
 "head"}`` dict.
 
-A stack crosses as ``{"l0": layer dict, "l1": ...}``.  The Adam state
+A stack crosses as ``{"l0": layer dict, "l1": ...}``.  A ``DecoderLM``
+crosses as the reference's nested dict (``{"embed", "blocks": {"wq", ...},
+"final_norm", "head"}``) and its Adam state as ``{"m": that tree, "v": that
+tree, "step"}`` (``lm_params_*``, ``lm_opt_state_*``).  The Adam state
 crosses as the reference's ``{"m": stack dict, "v": stack dict, "step"}``;
 the reference keeps moments for the BN ``bn_mean`` / ``bn_var`` too, which
 are buffers in the port and always zero in the reference (their gradient is
 zero), so they are dropped on the way in and written as zeros on the way out.
+
+``checkpoint_tree`` / ``load_checkpoint_tree`` take either (a stack or a
+``DecoderLM``) and are the one place that tells them apart, for
+``ckpt/store.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from repro_torch.core.hgq_layers import HGQDense
 from repro_torch.core.lut_layers import LUTDense
 from repro_torch.core.nla_baseline import NLALayer
+from repro_torch.models.lm import DecoderLM
 from repro_torch.models.pid import PID_KEYS
 
 
@@ -208,3 +216,98 @@ def opt_state_to_numpy(layers, opt_state: Dict) -> Dict:
                 else:
                     dd[key] = a
     return out
+
+
+# ----------------------------------------------------------------- the LM zoo
+def nest(flat: Dict) -> Dict:
+    """``{"blocks/wq": a}`` -> ``{"blocks": {"wq": a}}``."""
+    out: Dict = {}
+    for path, a in flat.items():
+        *heads, last = path.split("/")
+        d = out
+        for h in heads:
+            d = d.setdefault(h, {})
+        d[last] = a
+    return out
+
+
+def unnest(tree: Dict, prefix: str = "") -> Dict:
+    """The inverse of :func:`nest`: leaves by ``/``-joined path."""
+    out: Dict = {}
+    for key, sub in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        out.update(unnest(sub, path) if isinstance(sub, dict) else {path: sub})
+    return out
+
+
+def _check_lm_keys(model, flat: Dict, what: str) -> None:
+    want, got = set(model.flat_params()), set(flat)
+    if want != got:
+        raise KeyError(f"{what} keys differ: missing {sorted(want - got)}, "
+                       f"unexpected {sorted(got - want)}")
+
+
+def lm_params_from_numpy(model, tree: Dict):
+    """Load the reference's nested parameter dict of a ``DecoderLM``
+    (``{"embed", "blocks": {...}, "final_norm", "head"}``, numpy leaves)
+    into ``model``; keys and shapes must match exactly.  Returns the model."""
+    flat = unnest(tree)
+    _check_lm_keys(model, flat, "parameter")
+    with torch.no_grad():
+        for path, p in model.flat_params().items():
+            a = np.asarray(flat[path])
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{path}: shape {a.shape} != {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(a, dtype=p.dtype))
+    return model
+
+
+def lm_params_to_numpy(model) -> Dict:
+    """The model's parameters as the reference's nested dict of numpy arrays."""
+    return nest({k: p.detach().cpu().numpy().copy()
+                 for k, p in model.flat_params().items()})
+
+
+def lm_opt_state_from_numpy(model, tree: Dict) -> Dict:
+    """The reference's Adam state ``{"m": tree, "v": tree, "step"}`` as the
+    port's (flat by path, on the model's parameters' devices)."""
+    params = model.flat_params()
+    out: Dict = {"step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                                      device=model.device)}
+    for mv in ("m", "v"):
+        flat = unnest(tree[mv])
+        _check_lm_keys(model, flat, f"Adam {mv}")
+        out[mv] = {k: torch.as_tensor(np.asarray(flat[k], np.float32)).to(p.device)
+                   for k, p in params.items()}
+    return out
+
+
+def lm_opt_state_to_numpy(model, opt_state: Dict) -> Dict:
+    """The port's Adam state of ``model`` in the reference's nested form."""
+    out: Dict = {"step": np.int32(int(opt_state["step"]))}
+    for mv in ("m", "v"):
+        out[mv] = nest({k: opt_state[mv][k].detach().cpu().numpy().copy()
+                        for k in model.flat_params()})
+    return out
+
+
+# ------------------------------------------------------------ for checkpoints
+def checkpoint_tree(params, opt_state=None) -> Dict:
+    """``{"params": tree, "opt": tree}`` (``opt`` only with ``opt_state``) of
+    a stack of layers or a ``DecoderLM``, in the reference's nesting."""
+    lm = isinstance(params, DecoderLM)
+    tree = {"params": lm_params_to_numpy(params) if lm else stack_params_to_numpy(params)}
+    if opt_state is not None:
+        tree["opt"] = (lm_opt_state_to_numpy(params, opt_state) if lm
+                       else opt_state_to_numpy(params, opt_state))
+    return tree
+
+
+def load_checkpoint_tree(params, tree: Dict):
+    """Load ``tree["params"]`` into ``params`` (a stack or a ``DecoderLM``) in
+    place; returns the Adam state of ``tree["opt"]``, or None without it."""
+    lm = isinstance(params, DecoderLM)
+    (lm_params_from_numpy if lm else stack_params_from_numpy)(params, tree["params"])
+    if "opt" not in tree:
+        return None
+    return (lm_opt_state_from_numpy if lm else opt_state_from_numpy)(params, tree["opt"])

@@ -19,6 +19,13 @@ compose to the generic one, each with an ``EnginePathWarning`` (its reason
 is printed too); ``--require-pallas`` turns that into a hard exit.
 ``--engine tables`` prefers the fused path.
 
+``--engine float`` serves an LM config instead (``--arch``, ``--smoke``):
+random parameters from ``--seed``, a batched prefill of ``--prompt-len``
+random tokens, KV caches of ``prompt_len + gen`` positions, then greedy
+``decode_step`` (``train/steps.py::make_prefill``/``make_decode_step``).
+Its defaults are the reference's, ``--batch 4 --prompt-len 32 --gen 16``;
+the integer engines keep ``--batch 1024 --gen 8``.
+
 ``--dce`` runs dead-cell elimination (``core/opt.py``) before compiling and
 gates the optimized engine against the unoptimized interpreter; ``--lint``
 prints the static-analysis report (``launch/lint.py``) of the lowered
@@ -59,6 +66,8 @@ Usage (the paper's JSC-HLF model at its real widths)::
         --artifact jsc.npz --skip-verify-cached --serve-loop --rate 2000
     PYTHONPATH=src python -m repro_torch.launch.serve --engine pallas \\
         --models jsc.npz,pid.npz --replicas 2 --rate 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine float \\
+        --arch olmo_1b --batch 4 --prompt-len 32768 --gen 32
 """
 
 from __future__ import annotations
@@ -107,11 +116,18 @@ def build_model_program(args, device):
             f"model=lut-stack dims={dims}")
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", choices=("tables", "pallas"), default="tables",
+    ap.add_argument("--engine", choices=("tables", "pallas", "float"), default="tables",
                     help="tables: fused per-stage engine; pallas: the "
-                         "one-launch packed chain (kernel B4) preferred")
+                         "one-launch packed chain (kernel B4) preferred; "
+                         "float: an LM config (--arch), prefill + greedy decode")
+    ap.add_argument("--arch", default=None,
+                    help="LM arch config (required for --engine float)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--engine float: the arch's reduced config")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="--engine float: prompt tokens a sequence")
     ap.add_argument("--model", choices=("lut-stack", "pid-hybrid"),
                     default="lut-stack",
                     help="lut-stack: LUT-Dense chain from --lut-dims; "
@@ -126,9 +142,12 @@ def main(argv=None) -> None:
                     help="fractional bits of the request input grid")
     ap.add_argument("--in-i", type=int, default=2,
                     help="integer bits of the request input grid")
-    ap.add_argument("--batch", type=int, default=1024)
-    ap.add_argument("--gen", type=int, default=8,
-                    help="request batches to serve")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows a request batch (default 1024); sequences "
+                         "with --engine float (default 4)")
+    ap.add_argument("--gen", type=int, default=None,
+                    help="request batches to serve (default 8); tokens to "
+                         "generate with --engine float (default 16)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--require-pallas", action="store_true",
@@ -194,15 +213,100 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     if args.require_pallas:
         args.engine = "pallas"
+    lm = args.engine == "float"
+    if lm and args.require_fused:
+        ap.error("--require-fused only applies to --engine tables/pallas")
+    if lm and args.arch is None:
+        ap.error("--arch is required with --engine float")
+    if args.batch is None:
+        args.batch = 4 if lm else 1024
+    if args.gen is None:
+        args.gen = 16 if lm else 8
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available")
+    if lm:
+        return serve_float(args, device)
     if args.models or args.replicas > 1:
         return serve_tier(args, device)
     built = _tables_engine(args, device)
     if args.serve_loop:
         return serve_loop(args, built.prog, built.engine)
     serve_batches(args, device, built)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_float(args, device) -> dict:
+    """``--engine float``: an LM of ``--arch`` with random parameters from
+    ``--seed``, one batched prefill of ``--prompt-len`` random tokens into KV
+    caches of ``prompt_len + gen`` positions (the reference pads them after
+    the prefill; here they are allocated at that length), then greedy
+    ``decode_step`` for ``gen - 1`` tokens.  Returns the generated tokens
+    ``(batch, gen)``, the timings, the cache bytes, the peak device memory,
+    kernel B1's launches by call (prefill, then each decode step), the model
+    and the last logits."""
+    from repro_torch.configs.base import get_config, get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_decode_step, make_prefill
+
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    gen_t = torch.Generator(device=device).manual_seed(args.seed)
+    model = build_model(cfg, device=device, generator=gen_t)
+    total = args.prompt_len + args.gen
+    rng = np.random.default_rng(args.seed)
+    batch = {}
+    for k, v in model.input_specs(args.prompt_len, args.batch, "prefill").items():
+        if v.dtype == torch.int32:
+            a = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+            batch[k] = torch.as_tensor(a, device=device)
+        else:
+            batch[k] = torch.as_tensor(rng.normal(0, 1, v.shape), device=device).to(v.dtype)
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    b1 = []
+
+    def b1_since(before):
+        b1.append(ops.launch_counts()["fake_quant"] - before)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    before = ops.launch_counts()["fake_quant"]
+    logits, cache = prefill(batch, cache_len=total)
+    b1_since(before)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    out_tokens = [tokens]
+    t0 = time.perf_counter()
+    for _ in range(args.gen - 1):
+        before = ops.launch_counts()["fake_quant"]
+        logits, cache = decode(cache, tokens)
+        b1_since(before)
+        tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        out_tokens.append(tokens)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+
+    gen = torch.stack(out_tokens, dim=1).cpu().numpy()
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    print(f"[serve] arch={cfg.name} batch={args.batch} "
+          f"prefill({args.prompt_len} tok)={t_prefill*1e3:.1f} ms  "
+          f"decode={t_decode/max(args.gen-1,1)*1e3:.2f} ms/tok")
+    print(f"[serve] kv cache {kv_bytes} bytes ({total} positions), peak device "
+          f"memory {peak} bytes; B1 launches: prefill {b1[0]}, decode "
+          f"{sorted(set(b1[1:]))} a step")
+    print(f"[serve] sample generations (token ids): {gen[0][:12].tolist()}")
+    return {"tokens": gen, "prefill_s": t_prefill, "decode_s": t_decode,
+            "kv_bytes": kv_bytes, "peak_bytes": peak, "b1_per_call": b1,
+            "model": model, "logits": logits}
 
 
 def _spec(args, *, verify: str, optimize: bool = False):

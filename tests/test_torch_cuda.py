@@ -904,3 +904,107 @@ def test_nla_step_on_card_matches_cpu(device):
         chip_smoke.NLA_BATCH = old
     assert worst <= chip_smoke.NLA_GRAD_RTOL
     assert ce_card == pytest.approx(ce_cpu, rel=1e-5)
+
+
+# ------------------------------------------------------------ the LM zoo
+@pytest.mark.parametrize("arch", ["olmo_1b", "phi35_moe", "internvl2_26b"])
+def test_lm_smoke_step_on_card_matches_cpu(device, arch):
+    """One objective and gradient of a decoder smoke config in float32 on
+    the card against the CPU, then one Adam step each
+    (``chip_smoke.lm_card_vs_cpu``: loss within 1e-5, gradients within 1e-3
+    of their largest, flipped codes bounded, parameters within 2·lr)."""
+    import dataclasses
+
+    import chip_smoke
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.steps import TrainHParams
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+    r = chip_smoke.lm_card_vs_cpu(
+        model, lambda dev: chip_smoke.lm_batch_on(model, 32, 2, 0, 0, dev),
+        TrainHParams(adam=AdamConfig(lr=3e-4)), arch)
+    assert r["dp"] <= 6e-4
+
+
+def test_lm_glu_launches_b1_five_times(device):
+    """An HGQ GLU forward on the card launches B1 five times (gate w, gate
+    x, up w, down w, down h), and a train step of the smoke OLMo with
+    per-layer remat ten times a layer."""
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import TrainHParams, init_state, make_train_step
+
+    cfg = get_smoke("olmo_1b")
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(1))
+    step, _ = make_train_step(model, TrainHParams())
+    _, opt = init_state(model)
+    batch = {k: torch.randint(1, 50, (2, 32), device=device, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    before = ops.launch_counts()["fake_quant"]
+    step(opt, batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fake_quant"] - before == 10 * cfg.n_layers
+    before = ops.launch_counts()["fake_quant"]
+    with torch.no_grad():
+        model.prefill({"tokens": batch["tokens"]})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fake_quant"] - before == 5 * cfg.n_layers
+
+
+def test_lm_graph_chunks_equal_eager(device):
+    """The LM step in CUDA-graph chunks of 3 against eager chunks from the
+    same start: parameters, Adam state and every metric bit for bit."""
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import run_chunked
+    from repro_torch.train.steps import TrainHParams, init_state, make_train_step
+
+    out = {}
+    for mode in ("eager", "graph"):
+        model = build_model(get_smoke("qwen15_05b"), device=device,
+                            generator=torch.Generator(device=device).manual_seed(2))
+        step, _ = make_train_step(model, TrainHParams())
+        params, opt = init_state(model)
+        rows = []
+        _, opt, _ = run_chunked(step, params, opt, lambda s: lm_batch(0, s, 2, 32, 256), 0, 7,
+                                chunk_steps=3, mode=mode, on_chunk=lambda r: rows.append(
+                                    {k: v.copy() for k, v in r.metrics.items()}))
+        out[mode] = ({k: p.detach().clone() for k, p in model.flat_params().items()},
+                     {mv: {k: t.clone() for k, t in opt[mv].items()} for mv in ("m", "v")},
+                     rows)
+    (pe, oe, me), (pg, og, mg) = out["eager"], out["graph"]
+    for k in pe:
+        assert torch.equal(pe[k], pg[k]), k
+    for mv in ("m", "v"):
+        for k in oe[mv]:
+            assert torch.equal(oe[mv][k], og[mv][k]), (mv, k)
+    for a, b in zip(me, mg):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_lm_decode_writes_the_cache_in_place(device):
+    """A decode step on the card writes its K/V rows into the prefill's
+    cache tensors (no copy) and agrees with the full forward at the
+    reference test's bound."""
+    import chip_smoke
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_smoke("gemma3_12b"), device=device,
+                        generator=torch.Generator(device=device).manual_seed(3))
+    toks = torch.randint(1, 200, (2, 20), device=device, dtype=torch.int32)
+    with torch.no_grad():
+        _, cache = model.prefill({"tokens": toks}, cache_len=24)
+        k = cache["k"]
+        ptr = k.data_ptr()
+        _, cache2 = model.decode_step(cache, toks[:, 0])
+    assert cache2["k"].data_ptr() == ptr and bool(k[:, :, :, 20].abs().sum() > 0)
+    assert chip_smoke.lm_prefill_decode(model, toks, 3, device) <= 0.15
