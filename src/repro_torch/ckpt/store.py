@@ -17,7 +17,7 @@
 * **retention** -- keep the last N checkpoints, delete older ones.
 
 The port's parameters live in modules, so ``save`` and ``restore`` take
-the modules (a stack of layers, or a ``DecoderLM``) where the reference
+the modules (a stack of layers, or a model of the LM zoo) where the reference
 takes its parameter tree, and ``restore`` loads into them in place.  They
 cross to and from the reference's tree through
 ``interop.checkpoint_tree`` / ``load_checkpoint_tree``, so an LM's arrays
@@ -71,7 +71,7 @@ class CheckpointStore:
     # ---------------------------------------------------------------- save
     def save(self, step: int, params, opt_state=None,
              extra: Optional[dict] = None, blocking: bool = False) -> None:
-        """Save ``params`` (a stack of layers or a ``DecoderLM``) and its Adam
+        """Save ``params`` (a stack of layers or a zoo model) and its Adam
         state at ``step``."""
         arrays = _flatten(interop.checkpoint_tree(params, opt_state))
         manifest = {"step": int(step), **(extra or {})}
@@ -122,7 +122,7 @@ class CheckpointStore:
     def restore(self, ref_params, ref_opt=None,
                 step: Optional[int] = None, device=None):
         """Load a checkpoint into ``ref_params`` (a stack of layers or a
-        ``DecoderLM``); returns ``(layers or model, opt_state, manifest)``.
+        zoo model); returns ``(layers or model, opt_state, manifest)``.
 
         Every key and shape is checked against the modules (and against
         ``ref_opt``, their Adam state, when given) before any is loaded.

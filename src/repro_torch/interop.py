@@ -17,9 +17,11 @@ layer's dict, as the reference's conv parameters are its dense's.  The PID
 hybrid crosses as the reference example's ``{"front", "lc1", "lc2",
 "head"}`` dict.
 
-A stack crosses as ``{"l0": layer dict, "l1": ...}``.  A ``DecoderLM``
-crosses as the reference's nested dict (``{"embed", "blocks": {"wq", ...},
-"final_norm", "head"}``) and its Adam state as ``{"m": that tree, "v": that
+A stack crosses as ``{"l0": layer dict, "l1": ...}``.  A model of the LM
+zoo (``DecoderLM``, ``ZambaHybrid``, ``RWKV6LM``, ``WhisperEncDec``: any
+module with ``flat_params``) crosses as the reference's nested dict
+(``{"embed", "blocks": {"wq", ...}, "final_norm", "head"}``, ``shared``,
+``enc_blocks``...) and its Adam state as ``{"m": that tree, "v": that
 tree, "step"}`` (``lm_params_*``, ``lm_opt_state_*``).  The Adam state
 crosses as the reference's ``{"m": stack dict, "v": stack dict, "step"}``;
 the reference keeps moments for the BN ``bn_mean`` / ``bn_var`` too, which
@@ -27,7 +29,7 @@ are buffers in the port and always zero in the reference (their gradient is
 zero), so they are dropped on the way in and written as zeros on the way out.
 
 ``checkpoint_tree`` / ``load_checkpoint_tree`` take either (a stack or a
-``DecoderLM``) and are the one place that tells them apart, for
+zoo model) and are the one place that tells them apart, for
 ``ckpt/store.py``.
 """
 
@@ -41,7 +43,6 @@ import torch
 from repro_torch.core.hgq_layers import HGQDense
 from repro_torch.core.lut_layers import LUTDense
 from repro_torch.core.nla_baseline import NLALayer
-from repro_torch.models.lm import DecoderLM
 from repro_torch.models.pid import PID_KEYS
 
 
@@ -247,10 +248,17 @@ def _check_lm_keys(model, flat: Dict, what: str) -> None:
                        f"unexpected {sorted(got - want)}")
 
 
+def is_zoo_model(params) -> bool:
+    """True for a model of the LM zoo (it has ``flat_params``), False for a
+    stack of layers."""
+    return hasattr(params, "flat_params")
+
+
 def lm_params_from_numpy(model, tree: Dict):
-    """Load the reference's nested parameter dict of a ``DecoderLM``
-    (``{"embed", "blocks": {...}, "final_norm", "head"}``, numpy leaves)
-    into ``model``; keys and shapes must match exactly.  Returns the model."""
+    """Load the reference's nested parameter dict of a zoo model
+    (``{"embed", "blocks": {...}, "final_norm", "head"}`` for a decoder,
+    numpy leaves) into ``model``; keys and shapes must match exactly.
+    Returns the model."""
     flat = unnest(tree)
     _check_lm_keys(model, flat, "parameter")
     with torch.no_grad():
@@ -294,8 +302,8 @@ def lm_opt_state_to_numpy(model, opt_state: Dict) -> Dict:
 # ------------------------------------------------------------ for checkpoints
 def checkpoint_tree(params, opt_state=None) -> Dict:
     """``{"params": tree, "opt": tree}`` (``opt`` only with ``opt_state``) of
-    a stack of layers or a ``DecoderLM``, in the reference's nesting."""
-    lm = isinstance(params, DecoderLM)
+    a stack of layers or a zoo model, in the reference's nesting."""
+    lm = is_zoo_model(params)
     tree = {"params": lm_params_to_numpy(params) if lm else stack_params_to_numpy(params)}
     if opt_state is not None:
         tree["opt"] = (lm_opt_state_to_numpy(params, opt_state) if lm
@@ -304,9 +312,9 @@ def checkpoint_tree(params, opt_state=None) -> Dict:
 
 
 def load_checkpoint_tree(params, tree: Dict):
-    """Load ``tree["params"]`` into ``params`` (a stack or a ``DecoderLM``) in
+    """Load ``tree["params"]`` into ``params`` (a stack or a zoo model) in
     place; returns the Adam state of ``tree["opt"]``, or None without it."""
-    lm = isinstance(params, DecoderLM)
+    lm = is_zoo_model(params)
     (lm_params_from_numpy if lm else stack_params_from_numpy)(params, tree["params"])
     if "opt" not in tree:
         return None

@@ -24,7 +24,11 @@ random parameters from ``--seed``, a batched prefill of ``--prompt-len``
 random tokens, KV caches of ``prompt_len + gen`` positions, then greedy
 ``decode_step`` (``train/steps.py::make_prefill``/``make_decode_step``).
 Its defaults are the reference's, ``--batch 4 --prompt-len 32 --gen 16``;
-the integer engines keep ``--batch 1024 --gen 8``.
+the integer engines keep ``--batch 1024 --gen 8``.  Any family of the zoo
+serves (decoders' KV caches, Zamba2's states and per-application KV,
+RWKV-6's recurrent state, Whisper's self and cross caches and its stub
+``frames``); the cache's bytes are printed by key, and a Whisper prompt +
+generation past its ``MAX_DEC_POS`` positions is refused.
 
 ``--dce`` runs dead-cell elimination (``core/opt.py``) before compiling and
 gates the optimized engine against the unoptimized interpreter; ``--lint``
@@ -246,7 +250,8 @@ def serve_float(args, device) -> dict:
     caches of ``prompt_len + gen`` positions (the reference pads them after
     the prefill; here they are allocated at that length), then greedy
     ``decode_step`` for ``gen - 1`` tokens.  Returns the generated tokens
-    ``(batch, gen)``, the timings, the cache bytes, the peak device memory,
+    ``(batch, gen)``, the timings, the cache bytes (in all and by key), the
+    peak device memory,
     kernel B1's launches by call (prefill, then each decode step), the model
     and the last logits."""
     from repro_torch.configs.base import get_config, get_smoke
@@ -258,6 +263,10 @@ def serve_float(args, device) -> dict:
     gen_t = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(cfg, device=device, generator=gen_t)
     total = args.prompt_len + args.gen
+    limit = getattr(model, "max_positions", None)
+    if limit is not None and total > limit:
+        raise SystemExit(f"--prompt-len {args.prompt_len} + --gen {args.gen} = {total} "
+                         f"positions: {cfg.name}'s decoder positions stop at {limit}")
     rng = np.random.default_rng(args.seed)
     batch = {}
     for k, v in model.input_specs(args.prompt_len, args.batch, "prefill").items():
@@ -295,17 +304,22 @@ def serve_float(args, device) -> dict:
     t_decode = time.perf_counter() - t0
 
     gen = torch.stack(out_tokens, dim=1).cpu().numpy()
-    kv_bytes = sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
+    # every state tensor of the cache, whatever the family's keys (the
+    # 0-d position index aside)
+    by_key = {k: t.numel() * t.element_size() for k, t in cache.items() if t.dim()}
+    kv_bytes = sum(by_key.values())
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     print(f"[serve] arch={cfg.name} batch={args.batch} "
           f"prefill({args.prompt_len} tok)={t_prefill*1e3:.1f} ms  "
           f"decode={t_decode/max(args.gen-1,1)*1e3:.2f} ms/tok")
-    print(f"[serve] kv cache {kv_bytes} bytes ({total} positions), peak device "
+    print(f"[serve] cache {kv_bytes} bytes ({total} positions): "
+          + ", ".join(f"{k} {v}" for k, v in by_key.items()))
+    print(f"[serve] peak device "
           f"memory {peak} bytes; B1 launches: prefill {b1[0]}, decode "
           f"{sorted(set(b1[1:]))} a step")
     print(f"[serve] sample generations (token ids): {gen[0][:12].tolist()}")
     return {"tokens": gen, "prefill_s": t_prefill, "decode_s": t_decode,
-            "kv_bytes": kv_bytes, "peak_bytes": peak, "b1_per_call": b1,
+            "kv_bytes": kv_bytes, "cache_bytes": by_key, "peak_bytes": peak, "b1_per_call": b1,
             "model": model, "logits": logits}
 
 

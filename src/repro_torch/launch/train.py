@@ -99,8 +99,9 @@ def resolve_beta(args):
 
 def make_get_batch(model, args):
     """``get_batch(step)``: ``lm_batch`` plus deterministic pseudo-embeddings
-    for modality stubs (a VLM's ``patch_embeds``, bf16 values as float32),
-    a pure function of (seed, step)."""
+    for modality stubs (a VLM's ``patch_embeds``, Whisper's ``frames``:
+    ``input_specs``' shapes, bf16 values as float32), a pure function of
+    (seed, step)."""
     from repro_torch.data.synthetic import lm_batch
 
     stubs = {k: v.shape for k, v in model.input_specs(args.seq, args.batch, "train").items()

@@ -29,6 +29,12 @@ the reference's nested numpy dict (``interop.lm_params_*``).
 
 The reference's mesh hooks (``_constrain``, SP attention) are the identity
 on one card, as with ``mesh=None`` there, and are left out.
+
+What the zoo's model classes share lives here too: ``ZooModel`` (the
+parameters registered by reference path from the class's ``defs_of(cfg)``,
+``flat_params``, the stacks by prefix), the chunked CE head ``ce_loss``,
+``_ckpt`` and ``TensorSpec``; ``lm_checkpoint_shapes`` takes a config of
+any family.
 """
 
 from __future__ import annotations
@@ -95,41 +101,117 @@ def lm_defs(cfg: ArchConfig) -> Dict[str, object]:
 
 
 def lm_checkpoint_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
-    """Every array of an LM checkpoint with its shape, from the config alone:
-    ``params/<path>``, ``opt/m/<path>``, ``opt/v/<path>`` and ``opt/step``,
-    the names the reference's ``tree_flatten_with_path`` gives them."""
-    defs = flat_defs(lm_defs(cfg))
+    """Every array of an LM checkpoint with its shape, from the config alone
+    (any family of the zoo: the defs come from its model class, which is not
+    built): ``params/<path>``, ``opt/m/<path>``, ``opt/v/<path>`` and
+    ``opt/step``, the names the reference's ``tree_flatten_with_path`` gives
+    them."""
+    from repro_torch.models.registry import model_class
+
+    defs = flat_defs(model_class(cfg).defs_of(cfg))
     out = {f"{head}/{k}": tuple(d.shape) for head in ("params", "opt/m", "opt/v")
            for k, d in defs.items()}
     out["opt/step"] = ()
     return out
 
 
-class DecoderLM(nn.Module):
-    """The decoder LM of ``cfg`` with parameters drawn from ``generator``
-    (``nn/params.py``'s distributions) on ``device``."""
+def ce_loss(x: Tensor, w: Tensor, labels: Tensor, remat: bool) -> Tensor:
+    """Mean cross-entropy of the logits ``x @ w`` against ``labels`` over
+    sequence chunks of ``LOSS_CHUNK`` tokens (each checkpointed with
+    ``remat``): the logits are a product in x's dtype widened to float32,
+    and the gold logit a gather."""
+    labels = labels.long()
+    b, s, _ = x.shape
+    c = min(LOSS_CHUNK, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of the CE chunk {c}")
+
+    def ce_chunk(xk, lk):
+        logits = torch.matmul(xk, w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lk[..., None])[..., 0]
+        return torch.sum(lse - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(s // c):
+        args = (x[:, j * c:(j + 1) * c], labels[:, j * c:(j + 1) * c])
+        total = total + (_ckpt(ce_chunk, *args) if remat else ce_chunk(*args))
+    return total / (b * s)
+
+
+class ZooModel(nn.Module):
+    """What the zoo's model classes share: the parameters of
+    ``defs_of(cfg)`` registered by reference path (``blocks/wq``) and drawn
+    from ``generator`` on ``device`` (``nn/params.py``'s distributions),
+    the compute dtype, and the stacked parameters by prefix."""
 
     def __init__(self, cfg: ArchConfig, *, device="cpu",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        for path, d in flat_defs(self.defs()).items():
+            self.register_parameter(path, nn.Parameter(init_tensor(d, generator, device)))
+
+    @staticmethod
+    def defs_of(cfg: ArchConfig) -> Dict[str, object]:
+        raise NotImplementedError
+
+    def defs(self) -> Dict[str, object]:
+        return self.defs_of(self.cfg)
+
+    def flat_params(self) -> Dict[str, nn.Parameter]:
+        """The parameters by reference path (``blocks/wq``), in defs order."""
+        return dict(self.named_parameters())
+
+    @property
+    def device(self) -> torch.device:
+        return self.get_parameter("embed").device
+
+    def _stack(self, prefix: str) -> Dict[str, Tensor]:
+        """The parameters under ``prefix/`` by their key below it."""
+        n = len(prefix) + 1
+        return {k[n:]: v for k, v in self.named_parameters() if k.startswith(prefix + "/")}
+
+    @staticmethod
+    def _layer(blocks: Dict[str, Tensor], l: int) -> Dict[str, Tensor]:
+        return {k: v[l] for k, v in blocks.items()}
+
+    def _positions(self, b: int, s: int) -> Tensor:
+        return torch.arange(s, device=self.device).expand(b, s)
+
+    def _index(self, s: int) -> Tensor:
+        return torch.full((), s, dtype=torch.int32, device=self.device)
+
+    def _zero_cache(self, b: int, t: int) -> Dict[str, Tensor]:
+        """``cache_defs(b, t)`` materialised as zeros on the model's device."""
+        return {k: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
+                for k, d in self.cache_defs(b, t).items()}
+
+    @staticmethod
+    def _serve_logits(x_last: Tensor, w: Tensor) -> Tensor:
+        """Serving logits: a float32 product on float32 weights."""
+        return torch.matmul(x_last.float(), w.float())
+
+
+class DecoderLM(ZooModel):
+    """The decoder LM of ``cfg`` with parameters drawn from ``generator``
+    (``nn/params.py``'s distributions) on ``device``."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cpu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, device=device, generator=generator)
         self.attn_cfg = attn.AttnCfg(
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
             qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
             rope_theta=cfg.rope_theta, causal=True, q_chunk=cfg.q_chunk,
             remat_chunks=cfg.flash_remat)
-        self.compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        for path, d in flat_defs(self.defs()).items():
-            self.register_parameter(path, nn.Parameter(init_tensor(d, generator, device)))
         self._windows = self._layer_window_list()
 
     # ------------------------------------------------------------------ defs
-    def defs(self) -> Dict[str, object]:
-        return lm_defs(self.cfg)
-
-    def flat_params(self) -> Dict[str, nn.Parameter]:
-        """The parameters by reference path (``blocks/wq``), in defs order."""
-        return dict(self.named_parameters())
+    @staticmethod
+    def defs_of(cfg: ArchConfig) -> Dict[str, object]:
+        return lm_defs(cfg)
 
     def _layer_window_list(self):
         cfg = self.cfg
@@ -142,14 +224,9 @@ class DecoderLM(nn.Module):
         """Per-layer attention window (NO_WINDOW = global), int32."""
         return torch.tensor(self._windows, dtype=torch.int32)
 
-    @property
-    def device(self) -> torch.device:
-        return self.get_parameter("embed").device
-
     # --------------------------------------------------------------- blocks
     def _blocks(self) -> Dict[str, Tensor]:
-        return {k[len("blocks/"):]: v for k, v in self.named_parameters()
-                if k.startswith("blocks/")}
+        return self._stack("blocks")
 
     def _working_blocks(self) -> Dict[str, Tensor]:
         """Compute-dtype working copy of the stacked block params; the HGQ
@@ -160,10 +237,6 @@ class DecoderLM(nn.Module):
             return blocks
         return {k: v if "_q" in k or v.dtype != torch.float32 else v.to(cd)
                 for k, v in blocks.items()}
-
-    @staticmethod
-    def _layer(blocks: Dict[str, Tensor], l: int) -> Dict[str, Tensor]:
-        return {k: v[l] for k, v in blocks.items()}
 
     # ----------------------------------------------------------------- embed
     def _embed_inputs(self, batch: Dict[str, Tensor]) -> Tensor:
@@ -219,9 +292,6 @@ class DecoderLM(nn.Module):
         return x + m, kv, eb, aux
 
     # ------------------------------------------------------------------ fwd
-    def _positions(self, b: int, s: int) -> Tensor:
-        return torch.arange(s, device=self.device).expand(b, s)
-
     def hidden_states(self, batch) -> Tuple[Tensor, Tensor, Tensor]:
         """Full-sequence forward -> (hidden (B,S,D), ebops, aux_loss)."""
         x = self._embed_inputs(batch)
@@ -251,24 +321,7 @@ class DecoderLM(nn.Module):
         """Chunked-CE training loss + metrics. batch: tokens, labels (B,S)."""
         x, ebops, aux = self.hidden_states(batch)
         w = self._head_weight().to(self.compute_dtype)
-        labels = batch["labels"].long()
-        b, s, _ = x.shape
-        c = min(LOSS_CHUNK, s)
-        if s % c:
-            raise ValueError(f"sequence {s} is not a multiple of the CE chunk {c}")
-
-        def ce_chunk(xk, lk):
-            logits = torch.matmul(xk, w).float()
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, lk[..., None])[..., 0]
-            return torch.sum(lse - gold)
-
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for j in range(s // c):
-            args = (x[:, j * c:(j + 1) * c], labels[:, j * c:(j + 1) * c])
-            total = total + (_ckpt(ce_chunk, *args) if self.cfg.ce_remat
-                             else ce_chunk(*args))
-        ce = total / (b * s)
+        ce = ce_loss(x, w, batch["labels"], self.cfg.ce_remat)
         return ce, {"ce": ce, "ebops": ebops, "aux_loss": aux}
 
     # ------------------------------------------------------------- serving
@@ -278,9 +331,6 @@ class DecoderLM(nn.Module):
                              dtype=self.compute_dtype)
         cd["index"] = PDef((), (), init="zeros", dtype=torch.int32)
         return cd
-
-    def _serve_logits(self, x_last: Tensor) -> Tensor:
-        return torch.matmul(x_last.float(), self._head_weight().float())
 
     def prefill(self, batch, cache_len: Optional[int] = None
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -306,9 +356,8 @@ class DecoderLM(nn.Module):
             ks[l, :, :, :s] = k.transpose(1, 2)
             vs[l, :, :, :s] = v.transpose(1, 2)
         x = self._final_norm(x)
-        cache = {"k": ks, "v": vs,
-                 "index": torch.full((), s, dtype=torch.int32, device=x.device)}
-        return self._serve_logits(x[:, -1]), cache
+        cache = {"k": ks, "v": vs, "index": self._index(s)}
+        return self._serve_logits(x[:, -1], self._head_weight()), cache
 
     def decode_step(self, cache: Dict[str, Tensor], tokens: Tensor
                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -326,8 +375,8 @@ class DecoderLM(nn.Module):
                                      cache_kv=(cache["k"][l], cache["v"][l]),
                                      index=index)
         x = self._final_norm(x)
-        return self._serve_logits(x[:, 0]), {"k": cache["k"], "v": cache["v"],
-                                             "index": index + 1}
+        return self._serve_logits(x[:, 0], self._head_weight()), {
+            "k": cache["k"], "v": cache["v"], "index": index + 1}
 
     # --------------------------------------------------------------- inputs
     def input_specs(self, seq_len: int, batch: int, mode: str) -> Dict[str, TensorSpec]:

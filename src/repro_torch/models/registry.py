@@ -1,8 +1,9 @@
 """Model registry: family -> model class (port of ``repro.models.registry``).
 
-The decoder families (``lm``, ``moe``, ``vlm``) build a ``DecoderLM``.  The
-hybrid (Zamba2), SSM (RWKV-6) and encoder-decoder (Whisper) families are
-the next slice of the port and raise here; no family falls back to another.
+The decoder families (``lm``, ``moe``, ``vlm``) build a ``DecoderLM``, the
+hybrid a ``ZambaHybrid`` (Zamba2), the SSM family an ``RWKV6LM`` and the
+encoder-decoder a ``WhisperEncDec``; an unknown family raises, and no
+family falls back to another.
 """
 
 from __future__ import annotations
@@ -13,18 +14,26 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-NOT_PORTED = {"hybrid": "ZambaHybrid", "ssm": "RWKV6LM", "encdec": "WhisperEncDec"}
+
+def model_class(cfg: ArchConfig):
+    """The model class of ``cfg``'s family (not built)."""
+    if cfg.family in ("lm", "moe", "vlm"):
+        from repro_torch.models.lm import DecoderLM
+        return DecoderLM
+    if cfg.family == "hybrid":
+        from repro_torch.models.zamba import ZambaHybrid
+        return ZambaHybrid
+    if cfg.family == "ssm":
+        from repro_torch.models.rwkv import RWKV6LM
+        return RWKV6LM
+    if cfg.family == "encdec":
+        from repro_torch.models.whisper import WhisperEncDec
+        return WhisperEncDec
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def build_model(cfg: ArchConfig, *, device="cpu",
                 generator: Optional[torch.Generator] = None):
     """The model of ``cfg`` on ``device``, its parameters drawn from
     ``generator``."""
-    if cfg.family in ("lm", "moe", "vlm"):
-        from repro_torch.models.lm import DecoderLM
-        return DecoderLM(cfg, device=device, generator=generator)
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family ({NOT_PORTED[cfg.family]}) is not "
-            f"ported yet (ROADMAP A9b)")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    return model_class(cfg)(cfg, device=device, generator=generator)

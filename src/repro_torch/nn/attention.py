@@ -1,9 +1,11 @@
 """Grouped-query attention with q-chunked scoring (port of ``repro.nn.attention``).
 
-Covers the decoder zoo's attention variants: GQA with any (n_heads,
-n_kv_heads) grouping, qk-norm (qwen3), QKV bias (qwen1.5), sliding windows
-and local:global layer mixes (gemma3; the window is a per-layer scalar),
-and decode steps against pre-allocated (B, K, T, hd) KV caches.
+Covers the zoo's attention variants: GQA with any (n_heads, n_kv_heads)
+grouping, qk-norm (qwen3), QKV bias (qwen1.5), sliding windows and
+local:global layer mixes (gemma3; the window is a per-layer scalar),
+bidirectional encoder attention and cross-attention (whisper; ``prefix``
+selects a second set of weights, ``x_wq``...), and decode steps against
+pre-allocated (B, K, T, hd) KV caches.
 
 Scores are computed per query chunk of ``q_chunk`` rows, so the full (S, S)
 score matrix never materialises; with ``remat_chunks`` each chunk runs
@@ -20,6 +22,11 @@ A decode step writes its K/V row into the cache in place
 (``index_copy_``), where the reference donates the cache to
 ``dynamic_update_slice``: a functional copy of a 32k-token cache would move
 gigabytes a step.
+
+Cross-attention (``kv=`` given) projects only the queries from ``x``: the
+reference also projects K/V from the decoder stream and discards them,
+which XLA removes and eager PyTorch would not.  With ``return_kv`` the self
+K/V are projected all the same, as the reference returns them.
 """
 
 from __future__ import annotations
@@ -87,21 +94,35 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype).reshape(d, n * h)).unflatten(-1, (n, h))
 
 
-def project_qkv(p, x, cfg: AttnCfg, positions: Optional[torch.Tensor]):
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+def project_q(p, x, cfg: AttnCfg, positions: Optional[torch.Tensor], prefix: str = ""):
+    """The queries of :func:`project_qkv` alone."""
+    q = _proj(x, p[prefix + "wq"])
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        q = q + p[prefix + "bq"].to(x.dtype)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_scale"])
-        k = rms_norm(k, p["k_scale"])
+        q = rms_norm(q, p[prefix + "q_scale"])
     if cfg.use_rope and positions is not None:
         q = rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def project_kv(p, x, cfg: AttnCfg, positions: Optional[torch.Tensor], prefix: str = ""):
+    """The keys and values of :func:`project_qkv` alone."""
+    k = _proj(x, p[prefix + "wk"])
+    v = _proj(x, p[prefix + "wv"])
+    if cfg.qkv_bias:
+        k = k + p[prefix + "bk"].to(x.dtype)
+        v = v + p[prefix + "bv"].to(x.dtype)
+    if cfg.qk_norm:
+        k = rms_norm(k, p[prefix + "k_scale"])
+    if cfg.use_rope and positions is not None:
         k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return k, v
+
+
+def project_qkv(p, x, cfg: AttnCfg, positions: Optional[torch.Tensor], prefix: str = ""):
+    return (project_q(p, x, cfg, positions, prefix),
+            *project_kv(p, x, cfg, positions, prefix))
 
 
 def _chunk(qc, qp, kt, v, k_pos, causal: bool, win, scale: float):
@@ -122,10 +143,11 @@ def _chunk(qc, qp, kt, v, k_pos, causal: bool, win, scale: float):
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: AttnCfg, *,
                    q_positions: Optional[torch.Tensor] = None,
-                   window: Window = None) -> torch.Tensor:
+                   window: Window = None, causal: Optional[bool] = None) -> torch.Tensor:
     """q (B,S,N,hd) × k,v (B,T,K,hd) -> (B,S,N,hd), q-chunked.
 
-    ``window`` may be a per-layer scalar (NO_WINDOW = global attention).
+    ``window`` may be a per-layer scalar (NO_WINDOW = global attention);
+    ``causal`` overrides ``cfg.causal``.
     The chunks run heads-major, (B, K, ·, G, hd), so that K and V are laid
     out once a call (keys as float32 and transposed) and every chunk is two
     batched matmuls over them.
@@ -135,6 +157,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: AttnC
     kvh = cfg.n_kv
     g = n // kvh
     win = NO_WINDOW if window is None else window
+    causal = cfg.causal if causal is None else causal
 
     qc = min(cfg.q_chunk, s)
     pad = -s % qc
@@ -152,7 +175,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: AttnC
     outs = []
     for c in range(nc):
         args = (qh[:, :, c * qc:(c + 1) * qc], q_pos[:, c * qc:(c + 1) * qc], kt, vh,
-                k_pos, cfg.causal, win, hd ** -0.5)
+                k_pos, causal, win, hd ** -0.5)
         if remat:
             outs.append(checkpoint(_chunk, *args, use_reentrant=False,
                                    preserve_rng_state=False))
@@ -170,26 +193,35 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, dtype) -> torch.Tensor:
 
 def multihead_attention(p: dict, x: torch.Tensor, cfg: AttnCfg, *,
                         positions: Optional[torch.Tensor] = None,
-                        window: Window = None, return_kv: bool = False):
-    """Full-sequence self-attention (training / prefill). x: (B,S,D) ->
-    (B,S,D); with ``return_kv`` also its (K, V), each (B,S,K,hd)."""
-    q, k, v = project_qkv(p, x, cfg, positions)
-    out = attention_core(q, k, v, cfg, q_positions=positions, window=window)
-    y = _out_proj(out, p["wo"], x.dtype)
+                        window: Window = None,
+                        kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        prefix: str = "", return_kv: bool = False):
+    """Full-sequence attention (training / prefill). x: (B,S,D) -> (B,S,D).
+
+    ``kv`` (each (B,T,K,hd)) makes it cross-attention onto that source,
+    non-causal; ``prefix`` picks the weights (``x_wq``...).  With
+    ``return_kv`` also the self (K, V) of ``x``, each (B,S,K,hd)."""
+    q = project_q(p, x, cfg, positions, prefix)
+    self_kv = project_kv(p, x, cfg, positions, prefix) if kv is None or return_kv else None
+    k, v = self_kv if kv is None else kv
+    out = attention_core(q, k, v, cfg, q_positions=positions, window=window,
+                         causal=cfg.causal if kv is None else False)
+    y = _out_proj(out, p[prefix + "wo"], x.dtype)
     if return_kv:
-        return y, (k, v)
+        return y, self_kv
     return y
 
 
 def decode_attention(p: dict, x: torch.Tensor, cfg: AttnCfg, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, index: torch.Tensor, *,
-                     window: Window = None
+                     window: Window = None, prefix: str = "", update_cache: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode against a full-length (B, K, T, hd) KV cache.
 
     ``index`` is the step's position, a 0-d integer tensor on the cache's
     device (no host sync).  The new K/V row is written into
-    ``k_cache``/``v_cache`` in place, which are returned.
+    ``k_cache``/``v_cache`` in place (unless ``update_cache`` is False),
+    and they are returned.
     Window layers mask old positions; the cache stays full-length.
     """
     b = x.shape[0]
@@ -197,12 +229,14 @@ def decode_attention(p: dict, x: torch.Tensor, cfg: AttnCfg, k_cache: torch.Tens
     g = n // kvh
     win = NO_WINDOW if window is None else window
     pos = index.reshape(1, 1).expand(b, 1)
-    q, k_new, v_new = project_qkv(p, x, cfg, pos)                  # (B,1,*,hd)
+    q = project_q(p, x, cfg, pos, prefix)                          # (B,1,N,hd)
 
     t = k_cache.shape[2]
-    at = index.reshape(1).long()
-    k_cache.index_copy_(2, at, k_new.transpose(1, 2).to(k_cache.dtype))
-    v_cache.index_copy_(2, at, v_new.transpose(1, 2).to(v_cache.dtype))
+    if update_cache:
+        k_new, v_new = project_kv(p, x, cfg, pos, prefix)
+        at = index.reshape(1).long()
+        k_cache.index_copy_(2, at, k_new.transpose(1, 2).to(k_cache.dtype))
+        v_cache.index_copy_(2, at, v_new.transpose(1, 2).to(v_cache.dtype))
 
     qh = q.reshape(b, kvh, g, hd)
     sc = torch.matmul(qh.float(), k_cache.float().transpose(-1, -2)) * hd ** -0.5
@@ -211,5 +245,5 @@ def decode_attention(p: dict, x: torch.Tensor, cfg: AttnCfg, k_cache: torch.Tens
     sc = torch.where(mask[None, None, None, :], sc, NEG_INF)
     pr = torch.softmax(sc, dim=-1)
     out = torch.matmul(pr.to(x.dtype), v_cache.to(x.dtype))
-    y = _out_proj(out.reshape(b, n, hd), p["wo"], x.dtype)
+    y = _out_proj(out.reshape(b, n, hd), p[prefix + "wo"], x.dtype)
     return y[:, None, :], k_cache, v_cache

@@ -1,7 +1,9 @@
 """Train, prefill and decode steps (port of ``repro.train.steps``).
 
 ``make_train_step(model, hp)`` builds the LM objective ``CE + β(step)·EBOPs
-+ moe_aux_coef·aux`` of a ``DecoderLM``, takes its gradients, clips and
++ moe_aux_coef·aux`` of any model of the zoo (``DecoderLM``,
+``ZambaHybrid``, ``RWKV6LM``, ``WhisperEncDec``: it calls only
+``model.loss``), takes its gradients, clips and
 Adam-updates the model's parameters in place (the reference's order: β at
 the step before the increment, the learning rate at the step after it);
 ``make_prefill`` and ``make_decode_step`` wrap the serving forwards, and
@@ -71,7 +73,8 @@ def make_train_step(model, hp: TrainHParams = TrainHParams()):
     with no mesh).
 
     ``step_fn(opt_state, batch)`` with ``batch = {"tokens", "labels"}`` (and
-    ``patch_embeds`` for a VLM), tensors on the model's device, updates the
+    ``patch_embeds`` for a VLM, ``frames`` for Whisper), tensors on the
+    model's device, updates the
     model's parameters in place and returns ``(opt_state, metrics)``: loss,
     ce, ebops, aux_loss, grad_norm and lr as float32 tensors (nothing waits
     for the device).  With ``commit=False`` the step runs whole and writes

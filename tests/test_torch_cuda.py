@@ -1008,3 +1008,68 @@ def test_lm_decode_writes_the_cache_in_place(device):
         _, cache2 = model.decode_step(cache, toks[:, 0])
     assert cache2["k"].data_ptr() == ptr and bool(k[:, :, :, 20].abs().sum() > 0)
     assert chip_smoke.lm_prefill_decode(model, toks, 3, device) <= 0.15
+
+
+# ------------------------------------------------ the rest of the LM zoo
+def test_zoo_chunked_matches_scan_on_card(device):
+    """The chunked SSD and WKV against their scans at the published widths
+    on the card (``chip_smoke.zoo_chunked``: B = 2 x 500, three decay
+    settings, outputs and states within 1e-4 of their largest)."""
+    import chip_smoke
+
+    assert chip_smoke.zoo_chunked(device) <= chip_smoke.ZOO_CHUNK_RTOL
+
+
+@pytest.mark.parametrize("arch", ["zamba2_12b", "rwkv6_16b", "whisper_base"])
+def test_zoo_smoke_step_on_card_matches_cpu(device, arch):
+    """One objective and gradient of the smoke config in float32 on the card
+    against the CPU, then one Adam step each, at phase 16's bounds."""
+    import dataclasses
+
+    import chip_smoke
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.steps import TrainHParams
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+    r = chip_smoke.lm_card_vs_cpu(
+        model, lambda dev: chip_smoke.lm_batch_on(model, 32, 2, 0, 0, dev),
+        TrainHParams(adam=AdamConfig(lr=3e-4)), arch, **chip_smoke.ZOO_SMOKE_BOUNDS.get(arch, {}))
+    assert r["dp"] <= 6e-4
+
+
+@pytest.mark.parametrize("arch,per_forward", [("zamba2_12b", 10), ("rwkv6_16b", 0),
+                                              ("whisper_base", 16)])
+def test_zoo_b1_launches(device, arch, per_forward):
+    """B1 a forward of the smoke configs: Zamba2's 2 shared-block
+    applications x 5, RWKV-6 none, Whisper's 4 MLPs x 4; twice that in a
+    train step (per-layer remat), the decoder's half at a decode step."""
+    import chip_smoke
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import TrainHParams, init_state, make_train_step
+
+    model = build_model(get_smoke(arch), device=device,
+                        generator=torch.Generator(device=device).manual_seed(1))
+    step, _ = make_train_step(model, TrainHParams())
+    _, opt = init_state(model)
+    before = ops.launch_counts()["fake_quant"]
+    step(opt, chip_smoke.lm_batch_on(model, 32, 2, 0, 0, device))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fake_quant"] - before == 2 * per_forward
+    toks = torch.randint(1, 200, (2, 16), device=device, dtype=torch.int32)
+    with torch.no_grad():
+        before = ops.launch_counts()["fake_quant"]
+        _, cache = model.prefill({"tokens": toks, **chip_smoke.zoo_extra(model, 2, device)},
+                                 cache_len=20)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fake_quant"] - before == per_forward
+        before = ops.launch_counts()["fake_quant"]
+        model.decode_step(cache, toks[:, 0])
+        torch.cuda.synchronize()
+        want = per_forward // 2 if arch == "whisper_base" else per_forward
+        assert ops.launch_counts()["fake_quant"] - before == want
