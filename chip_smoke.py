@@ -186,19 +186,36 @@ line:
    2 / 2 layers in float32, RWKV-6's decode after 512 tokens beside after
    32768; crash and
    resume of the RWKV-6 and Zamba2 smoke configs, bit for bit;
-17. the ``kernels`` JSON line, then the result line.
+17. the mesh (``parallel/sharding.py``, ``launch/mesh.py``,
+   ``launch/dryrun.py``, every ``mesh=``): ``make_local_mesh()`` (nccl,
+   one rank, one device); Qwen1.5-0.5B at its published widths (24
+   layers, d 1024, vocab 151936, HGQ on every GLU) built twice from one
+   CUDA seed, 2 train steps at 8 x 4096 through ``make_train_step(...,
+   mesh=)`` from ``init_state(model, mesh)`` and without a mesh, loss, CE,
+   EBOPs, every parameter and Adam moment bit for bit, B1 240 times a step
+   both ways, ms/step, tokens/s, TFLOP/s and peak bytes; prefill of 1 x
+   8192 and 8 greedy decode steps with and without the mesh, logits and
+   caches bit for bit, B1 120 times a call; the JSC-HLF program through
+   ``compile_program(prog, mesh=)`` and ``build(EngineSpec(mesh=,
+   engine="pallas", require="pallas"))``, 8 batches of 1024 and of 16600
+   bit for bit equal to ``mesh=None`` with one B4 launch each, and a
+   2-replica tier over ``replica_meshes(mesh, 2)``; the fake-group dry-run
+   of the smoke OLMo and arctic at train_4k on an 8-rank (2, 4) mesh in a
+   subprocess; the phase's seconds; the process group destroyed;
+18. the ``kernels`` JSON line, then the result line.
 
 ``python3 chip_smoke.py --b1-timing``, ``--b2-timing``, ``--b3-timing`` and
 ``--b4-timing`` print only kernel B1's, B2's, B3's or B4's timings (and B2's,
 B3's or B4's registers, B2's and B3's SASS, B4's launch plan), and
 ``--loop-timing`` only the chunked loop's timings and profiles, with no
-result line, to compare two trees in one call; ``--lm`` runs only phase 15
-and ``--zoo`` only phase 16 (after the build), with no result line.
+result line, to compare two trees in one call; ``--lm`` runs only phase 15,
+``--zoo`` only phase 16 and ``--mesh`` only phase 17 (after the build),
+with no result line.
 
 The launch counters are zeroed just before each path (phases 5-6, phase 8
 after its step-1 comparison, phase 9 before its timings, and phase 10 after
-its step-1 comparison and before its off-path checks, phases 11, 12 and 14
-before the phase, and phases 15 and 16 before each of their paths: the
+its step-1 comparison and before its off-path checks, phases 11, 12, 14
+and 17 before the phase, and phases 15 and 16 before each of their paths: the
 sweeps, the train launcher, the serve launcher, the decode checks, the
 crash runs and the example) and read just after it
 (phases 11, 12 and 14 at their end, before their timings): each path must have launched each of its
@@ -5178,6 +5195,304 @@ def phase_zoo(device):
     return total
 
 
+# --------------------------------------------------------------------------- #
+# Phase 17: the mesh (parallel/sharding.py, launch/mesh.py, launch/dryrun.py,
+# the models' and train/steps.py's mesh= on DeviceMesh/DTensor).  Qwen1.5-0.5B
+# at its published widths (src/repro/configs/qwen15_05b.py, hf:Qwen/Qwen1.5-
+# 0.5B): 24 layers, d 1024, 16 heads, d_ff 2816, vocab 151936, QKV bias, HGQ
+# on every GLU projection (kernel B1); the JSC-HLF program of phase 6 through
+# kernel B4 on the same mesh.  One process drives one card, so the local mesh
+# has one device (ROADMAP C17), and every mesh tensor must come out bit for
+# bit as without the mesh.
+MESH_ARCH = "qwen15_05b"
+# SHAPES["train_4k"]: seq 4096, its global batch of 256 cut to 8 (one card,
+# as phase 15's OLMo-1B); two steps each way
+MESH_STEPS, MESH_BATCH, MESH_SEQ = 2, 8, 4096
+# SHAPES["prefill_32k"]: 32768 tokens, its batch of 32 cut to 1; 8 decoded.
+# The phase ran 72.2 s against its 60 s budget, so its first cut is taken:
+# the prompt 32768 -> 8192 (PERF.md §6)
+MESH_PROMPT, MESH_SERVE_BATCH, MESH_GEN = 8192, 1, 8
+# kernel B1 a GLU forward, 5 calls a layer; twice in a train step (remat)
+MESH_B1_FWD = 5 * 24
+MESH_SERVE_ROWS, MESH_SERVE_BATCHES = (1024, 16600), 8
+MESH_DRYRUN_ARCHS = ("olmo_1b", "arctic_480b")
+MESH_DRYRUN_DIR = os.path.join(REPO, "build", "mesh")
+
+
+def bits_equal(a, b) -> bool:
+    """Whether two tensors (DTensors taken whole) hold the same bits."""
+    import torch
+
+    whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    a, b = whole(a).detach(), whole(b).detach()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.reshape(-1).contiguous(), b.reshape(-1).contiguous()
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def mesh_models(cfg, mesh, device, seed=SEED):
+    """The model of ``cfg`` twice from one CUDA generator seed: ``"none"``
+    without a mesh, ``"mesh"`` on ``mesh``."""
+    import torch
+    from repro_torch.models.registry import build_model
+
+    return {tag: build_model(cfg, m, device=device,
+                             generator=torch.Generator(device=device).manual_seed(seed))
+            for tag, m in (("none", None), ("mesh", mesh))}
+
+
+def _timed(fn, *args):
+    """``fn(*args)`` with its host ms up to a synchronize, its B1 launches
+    and the peak bytes allocated."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = ops.launch_counts()["fake_quant"]
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, ops.launch_counts()["fake_quant"] - c0, torch.cuda.max_memory_allocated()
+
+
+def mesh_train(models, mesh, device, steps, batch, seq, hp, b1_step):
+    """``steps`` train steps of both models on the same batches, each
+    through ``make_train_step(..., mesh=)`` from ``init_state(model, mesh)``
+    (and without a mesh): loss, CE and EBOPs every step, then every
+    parameter and Adam moment, bit for bit; B1 ``b1_step`` times a step.
+    Returns per-tag ms, B1 launches and peak bytes."""
+    from repro_torch.train.steps import init_state, make_train_step
+
+    fns, opts = {}, {}
+    for tag, model in models.items():
+        m = mesh if tag == "mesh" else None
+        _, opts[tag] = init_state(model, m)
+        fns[tag], shards = make_train_step(model, hp, m)
+        check((shards is None) == (m is None), f"mesh: make_train_step shardings {shards}")
+    out = {tag: {"ms": [], "b1": [], "peak": 0} for tag in models}
+    for k in range(steps):
+        b = lm_batch_on(models["none"], seq, batch, SEED, k, device)
+        mets = {}
+        for tag in models:
+            (opts[tag], mets[tag]), ms, b1, peak = _timed(fns[tag], opts[tag], b)
+            out[tag]["ms"].append(ms)
+            out[tag]["b1"].append(b1)
+            out[tag]["peak"] = max(out[tag]["peak"], peak)
+            check(b1 == b1_step, f"mesh: {tag} step {k} launched B1 {b1} times, not {b1_step}")
+        for name in ("loss", "ce", "ebops"):
+            check(bits_equal(mets["mesh"][name], mets["none"][name]),
+                  f"mesh: step {k} {name} {float(mets['mesh'][name])!r} on the mesh, "
+                  f"{float(mets['none'][name])!r} without")
+        out.setdefault("loss", []).append(float(mets["none"]["loss"]))
+    pm, pn = models["mesh"].flat_params(), models["none"].flat_params()
+    bad = [k for k in pn if not bits_equal(pm[k], pn[k])]
+    bad += [f"{mv}/{k}" for mv in ("m", "v") for k in pn
+            if not bits_equal(opts["mesh"][mv][k], opts["none"][mv][k])]
+    bad += [] if bits_equal(opts["mesh"]["step"], opts["none"]["step"]) else ["step"]
+    check(not bad, f"mesh: {len(bad)} tensors differ after {steps} steps: {bad[:6]}")
+    out["n_tensors"] = 3 * len(pn) + 1
+    out["placements"] = sorted({str(tuple(p.placements)) for p in pm.values()})
+    return out
+
+
+def mesh_serve_lm(models, mesh, device, prompt, batch, gen, b1_call):
+    """``make_prefill`` of ``prompt`` random tokens into caches of
+    ``prompt + gen`` rows, then ``gen`` greedy ``make_decode_step`` calls,
+    with and without the mesh: logits and caches bit for bit after the
+    prefill and after every step; B1 ``b1_call`` times a call."""
+    import torch
+    from repro_torch.train.steps import make_decode_step, make_prefill
+
+    t = prompt + gen
+    pf = {"none": make_prefill(models["none"]), "mesh": make_prefill(models["mesh"], mesh)}
+    dec = {"none": make_decode_step(models["none"]),
+           "mesh": make_decode_step(models["mesh"], batch=batch, t=t, mesh=mesh)}
+    gen_t = torch.Generator(device=device).manual_seed(SEED + 17)
+    toks = torch.randint(0, models["none"].cfg.vocab, (batch, prompt), device=device,
+                         dtype=torch.int32, generator=gen_t)
+    logits, cache = {}, {}
+    out = {tag: {"prefill_ms": 0.0, "decode_ms": [], "peak": 0} for tag in pf}
+    for tag in pf:
+        (logits[tag], cache[tag]), ms, b1, peak = _timed(pf[tag], {"tokens": toks}, t)
+        out[tag]["prefill_ms"], out[tag]["peak"] = ms, peak
+        check(b1 == b1_call, f"mesh: {tag} prefill launched B1 {b1} times, not {b1_call}")
+
+    def same(what):
+        check(bits_equal(logits["mesh"], logits["none"]), f"mesh: {what} logits differ")
+        for k in cache["none"]:
+            check(bits_equal(cache["mesh"][k], cache["none"][k]), f"mesh: {what} cache {k} differs")
+
+    same("prefill")
+    for i in range(gen):
+        tok = torch.argmax(logits["none"], dim=-1).to(torch.int32)
+        for tag in dec:
+            (logits[tag], cache[tag]), ms, b1, _ = _timed(dec[tag], cache[tag], tok)
+            out[tag]["decode_ms"].append(ms)
+            check(b1 == b1_call, f"mesh: {tag} decode launched B1 {b1} times, not {b1_call}")
+        same(f"decode step {i}")
+    check(bool(torch.isfinite(logits["none"]).all()), "mesh: non-finite decode logits")
+    return out
+
+
+def mesh_b4(prog, mesh, device):
+    """The JSC-HLF program through ``compile_program(prog, mesh=)`` and
+    ``build(prog, EngineSpec(mesh=, engine="pallas", require="pallas"))``:
+    ``MESH_SERVE_BATCHES`` batches of each of ``MESH_SERVE_ROWS`` rows bit
+    for bit equal to the ``mesh=None`` engine, one B4 launch a batch; then a
+    2-replica tier over ``replica_meshes(mesh, 2)``.  Returns the batches
+    run and the B4 launches the phase made."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_serve import compile_program
+    from repro_torch.parallel.sharding import replica_meshes
+    from repro_torch.serve.api import EngineSpec, build, tier_from_built
+    from repro_torch.serve.scheduler import ServeConfig
+    from repro_torch.serve.tier import TierConfig
+
+    plain = compile_program(prog, device=device, engine="pallas")
+    direct = compile_program(prog, mesh=mesh, device=device, engine="pallas")
+    built = build(prog, EngineSpec(mesh=mesh, engine="pallas", require="pallas",
+                                   verify="full"), device=device)
+    check(direct.mesh is mesh and built.engine.mesh is mesh and built.engine.path == "pallas",
+          f"mesh: engines on {direct.mesh} / {built.engine.mesh}, path {built.engine.path}")
+    n = 0
+    for rows in MESH_SERVE_ROWS:
+        for codes in tool_codes(prog, rows, MESH_SERVE_BATCHES, SEED + 170 + rows):
+            want = plain.run(codes)
+            for tag, eng in (("compile_program", direct), ("build", built.engine)):
+                c0 = ops.launch_counts()["lut_serve"]
+                got = eng.run(codes)
+                torch.cuda.synchronize()
+                check(ops.launch_counts()["lut_serve"] - c0 == 1,
+                      f"mesh: {tag} B={rows} launched B4 "
+                      f"{ops.launch_counts()['lut_serve'] - c0} times")
+                check(torch.equal(got, want), f"mesh: {tag} B={rows} differs from mesh=None")
+                n += 1
+    meshes = replica_meshes(mesh, 2)
+    check(len(meshes) == 2 and all(m is mesh for m in meshes),
+          f"mesh: replica_meshes of a 1-device mesh gave {meshes}")
+    tier = tier_from_built({"jsc": built}, TierConfig(
+        n_replicas=2, serve=ServeConfig(max_batch=64, max_delay_ms=1.0)))
+    try:
+        codes = tool_codes(prog, 256, 1, SEED + 179)[0]
+        ref = prog.run(codes)
+        flights = [tier.submit(codes[k], "jsc") for k in range(len(codes))]
+        bad = sum(not np.array_equal(np.asarray(f.result(timeout=120), np.int64), ref[k])
+                  for k, f in enumerate(flights))
+        s = tier.stats()
+    finally:
+        tier.stop()
+    check(bad == 0, f"mesh: tier: {bad} responses differ from DaisProgram.run")
+    return n, s
+
+
+def mesh_dryrun():
+    """``python -m repro_torch.launch.dryrun`` in a subprocess (its fake
+    group never meets this process's nccl group) on the smoke OLMo and
+    arctic configs at train_4k on an 8-rank (2, 4) mesh."""
+    os.makedirs(MESH_DRYRUN_DIR, exist_ok=True)
+    out = os.path.join(MESH_DRYRUN_DIR, "dryrun.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"), "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                           ",".join(MESH_DRYRUN_ARCHS), "--shape", "train_4k", "--mesh", "2x4",
+                           "--smoke", "--out", out], env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.monotonic() - t0
+    check(proc.returncode == 0, f"mesh: dry-run failed: {proc.stderr[-1500:]}")
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
+    check([r["arch"] for r in rows] == list(MESH_DRYRUN_ARCHS),
+          f"mesh: dry-run cells {[r['arch'] for r in rows]}")
+    for r in rows:
+        check(r["n_collectives"] > 0 and r["argument_size_in_bytes"] > 0,
+              f"mesh: dry-run {r['arch']}: {r}")
+        print(f"[mesh] dry-run {r['arch']} smoke train_4k on {r['mesh']} ({r['n_devices']} "
+              f"fake ranks): per rank {r['argument_size_in_bytes']} argument bytes, peak "
+              f"{r['per_device_bytes']} bytes, {r['flops']:.4e} FLOPs; collectives "
+              + ", ".join(f"{k} {v['count']} ({v['bytes']} B)" for k, v in r["coll"].items())
+              + f"; {r['wall_s']} s")
+    return wall
+
+
+def phase_mesh(device, prog):
+    """Phase 17: the local mesh, Qwen1.5-0.5B trained and served through it
+    bit for bit against ``mesh=None``, the JSC-HLF program through B4 on it,
+    and the fake-group dry-run.  Returns the path's kernel launches (the
+    counters are zeroed just before the path)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.ebops import BetaSchedule
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.nn.params import count_params
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.steps import TrainHParams
+
+    t_phase = time.monotonic()
+    ops.reset_launch_counts()
+    try:
+        mesh = make_local_mesh("cuda")                                      # (a)
+        print(f"[mesh] make_local_mesh('cuda'): backend {dist.get_backend()}, "
+              f"{tuple(mesh.shape)} over {mesh.mesh_dim_names}, {dist.get_world_size()} "
+              f"rank(s), torch {torch.__version__}")
+        check(dist.get_backend() == "nccl" and mesh.size() == 1,
+              f"mesh: backend {dist.get_backend()}, {mesh.size()} devices")
+        cfg = get_config(MESH_ARCH)
+        models = mesh_models(cfg, mesh, device)                             # (b)
+        n_params = count_params(models["none"].defs())
+        hp = TrainHParams(adam=AdamConfig(lr=LM_LR),
+                          beta=BetaSchedule(beta_init=float(LM_BETA[0]), beta_final=None))
+        tr = mesh_train(models, mesh, device, MESH_STEPS, MESH_BATCH, MESH_SEQ, hp,
+                        2 * MESH_B1_FWD)
+        tokens = MESH_BATCH * MESH_SEQ
+        flops = lm_train_flops(cfg, n_params, tokens, MESH_SEQ)
+        for tag in ("none", "mesh"):
+            ms = tr[tag]["ms"]
+            print(f"[mesh] {MESH_ARCH} train {tag}: {n_params} parameters, B={MESH_BATCH} x "
+                  f"{MESH_SEQ}: ms/step {', '.join(f'{v:.1f}' for v in ms)}; "
+                  f"{tokens / (ms[-1] / 1e3):.1f} tokens/s and {flops / (ms[-1] / 1e3) / 1e12:.2f} "
+                  f"TFLOP/s at the last step; peak {tr[tag]['peak']} bytes; B1 {tr[tag]['b1']}")
+        print(f"[mesh] {MESH_ARCH} train: {MESH_STEPS} steps, loss {tr['loss']}, CE and EBOPs "
+              f"and all {tr['n_tensors']} parameters, Adam moments and step bit for bit "
+              f"equal with and without the mesh; placements {tr['placements']}")
+        sv = mesh_serve_lm(models, mesh, device, MESH_PROMPT, MESH_SERVE_BATCH,   # (c)
+                           MESH_GEN, MESH_B1_FWD)
+        for tag in ("none", "mesh"):
+            d = sv[tag]["decode_ms"]
+            print(f"[mesh] {MESH_ARCH} serve {tag}: prefill {MESH_SERVE_BATCH} x {MESH_PROMPT} "
+                  f"in {sv[tag]['prefill_ms']:.1f} ms (peak {sv[tag]['peak']} bytes); decode "
+                  f"ms/token median {float(np.median(d)):.2f} (range {min(d):.2f}-{max(d):.2f})")
+        print(f"[mesh] {MESH_ARCH} serve: prefill logits and caches, then {MESH_GEN} greedy "
+              f"decode steps' logits and caches, bit for bit equal with and without the mesh; "
+              f"B1 {MESH_B1_FWD} a call")
+        del models
+        torch.cuda.empty_cache()
+        n_b4, s = mesh_b4(prog, mesh, device)                               # (d)
+        print(f"[mesh] JSC-HLF through compile_program(prog, mesh=) and build(EngineSpec("
+              f"mesh=, engine='pallas', require='pallas')): {MESH_SERVE_BATCHES} batches "
+              f"each of {MESH_SERVE_ROWS} rows through each ({n_b4} runs), bit for bit "
+              f"equal to mesh=None, one B4 launch each; "
+              f"tier over replica_meshes(mesh, 2) (one device: time-multiplexed): "
+              f"{s.n_requests} requests bit-exact, {s.n_batches} batches")
+        launches = ops.launch_counts()
+        wall_dry = mesh_dryrun()                                            # (e)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"[mesh] phase 17: {time.monotonic() - t_phase:.1f} s (the dry-run subprocess "
+          f"{wall_dry:.1f} s)")                                             # (f)
+    return launches
+
+
 def main_b1_timing() -> int:
     """``--b1-timing``: only B1's cold-L2 timings (the same harness for two
     trees, run from each tree's root); prints no result line."""
@@ -5315,6 +5630,23 @@ def main_zoo() -> int:
     return 0
 
 
+def main_mesh() -> int:
+    """``--mesh``: only phase 17, the mesh (after the build and phase 5's
+    JSC-HLF program), with no result line."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_device()
+    device = torch.device("cuda:0")
+    try:
+        phase_mesh(device, phase_slice_float(device))
+    except SmokeError as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5333,6 +5665,8 @@ def main() -> int:
         return main_lm()
     if sys.argv[1:] == ["--zoo"]:
         return main_zoo()
+    if sys.argv[1:] == ["--mesh"]:
+        return main_mesh()
     # reference precision: no float32 matmul or convolution rounds via TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5401,6 +5735,11 @@ def main() -> int:
         paths["zoo"] = ("fake_quant",)
         check(launches["zoo"]["fake_quant"] > 0, f"the zoo path skipped B1: {launches['zoo']}")
         print(f"[main-path] zoo: kernel launches {launches['zoo']}")
+        launches["mesh"] = phase_mesh(device, prog)        # phase 17: the mesh
+        paths["mesh"] = ("fake_quant", "lut_serve")
+        check(all(launches["mesh"][n] > 0 for n in paths["mesh"]),
+              f"the mesh path skipped a kernel: {launches['mesh']}")
+        print(f"[main-path] mesh: kernel launches {launches['mesh']}")
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -22,7 +22,10 @@ takes its parameter tree, and ``restore`` loads into them in place.  They
 cross to and from the reference's tree through
 ``interop.checkpoint_tree`` / ``load_checkpoint_tree``, so an LM's arrays
 are the reference's flat keys too (``params/blocks/wq``,
-``opt/m/blocks/wq``, ``opt/step``).
+``opt/m/blocks/wq``, ``opt/step``).  A model on a mesh saves its whole
+arrays, and ``restore(shardings=)`` (placements by path, as
+``train.steps.param_shardings`` gives them) re-places the restored
+parameters and Adam state on the model's mesh, whatever mesh saved them.
 """
 
 from __future__ import annotations
@@ -120,7 +123,7 @@ class CheckpointStore:
         return steps[-1] if steps else None
 
     def restore(self, ref_params, ref_opt=None,
-                step: Optional[int] = None, device=None):
+                step: Optional[int] = None, device=None, shardings=None):
         """Load a checkpoint into ``ref_params`` (a stack of layers or a
         zoo model); returns ``(layers or model, opt_state, manifest)``.
 
@@ -128,7 +131,9 @@ class CheckpointStore:
         ``ref_opt``, their Adam state, when given) before any is loaded.
         With ``device`` the modules move there first; the Adam state is made
         on their device.  ``opt_state`` is None without ``ref_opt``, as in
-        the reference.
+        the reference.  With ``shardings`` (a zoo model built on a mesh;
+        placements by path) the parameters and the Adam state come back as
+        DTensors under them (the step replicated), for an elastic resume.
         """
         self.wait()
         if step is None:
@@ -142,9 +147,39 @@ class CheckpointStore:
             manifest = json.load(f)
         one = isinstance(ref_params, torch.nn.Module)
         params = ref_params if one else list(ref_params)
+        if shardings is not None:
+            if not one or getattr(params, "mesh", None) is None:
+                raise ValueError("shardings= re-places a zoo model built on a mesh")
+            _unplace(params)
         if device is not None:
             for m in [params] if one else params:
                 m.to(device)
         tree = _unflatten_like(interop.checkpoint_tree(params, ref_opt), arrays)
         opt = interop.load_checkpoint_tree(params, tree)
+        if shardings is not None:
+            opt = _place(params, opt, shardings)
         return params, opt, manifest
+
+
+def _unplace(model) -> None:
+    """Make each DTensor parameter of ``model`` a plain one of its whole value."""
+    for path, p in model.flat_params().items():
+        if hasattr(p, "full_tensor"):
+            model.register_parameter(path, torch.nn.Parameter(
+                p.detach().full_tensor(), requires_grad=p.requires_grad))
+
+
+def _place(model, opt, shardings):
+    """``model``'s parameters and the Adam state ``opt`` as DTensors under
+    ``shardings`` on the model's mesh; returns the placed Adam state."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.steps import place_params
+
+    place_params(model, shardings)
+    if opt is None:
+        return None
+    mesh = model.mesh
+    out = {mv: {k: shd.distribute(v, mesh, shardings[k]) for k, v in opt[mv].items()}
+           for mv in ("m", "v")}
+    out["step"] = shd.distribute(opt["step"], mesh, shd.placements((), mesh))
+    return out

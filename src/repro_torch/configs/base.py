@@ -7,8 +7,9 @@ for CPU tests.  Input-shape cells come from the shared SHAPES table;
 ``applicable_shapes`` encodes the skip rules (no decode for encoder-only,
 sub-quadratic gate on ``long_500k``).
 
-Fields that mean nothing on one card, kept so the configs read the same as
-the reference's: ``fsdp`` and ``serve_fsdp`` (ZeRO sharding over a mesh),
+``fsdp`` and ``serve_fsdp`` (ZeRO sharding) act on a mesh only, through
+the sharding rules (``parallel/sharding.py``, ``train/steps.py``).  Fields
+kept so the configs read the same as the reference's:
 ``flash_remat`` (the reference's name for recomputing each attention
 q-chunk in the backward; the port honours it as ``torch.utils.checkpoint``
 per chunk), ``ce_remat`` (likewise per CE chunk) and ``lut_use_fused``

@@ -147,11 +147,14 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fq_forward(x, f, i, signed, overflow):
-    """Kernel B1 on a CUDA tensor, :func:`_fq_eval` on a CPU tensor.  B1
-    reads a contiguous ``x`` or one expanded along its last axis in place
+    """Kernel B1 on a CUDA tensor, :func:`_fq_eval` on a CPU tensor, and on a
+    ``meta`` tensor (the dry-run) the output's shape and nothing launched.
+    B1 reads a contiguous ``x`` or one expanded along its last axis in place
     (``LUTDense``'s input quantizer); any other layout is copied first."""
     from repro_torch.kernels.fake_quant import fake_quant_fused, x_layout
 
+    if x.device.type == "meta":
+        return torch.empty(x.shape, dtype=torch.float32, device="meta")
     if x_layout(x) is None:
         x = x.contiguous()
     return fake_quant_fused(x, f, i, signed=signed, overflow=overflow)
@@ -196,21 +199,119 @@ def _reduce_to_shape(g: torch.Tensor, shape) -> torch.Tensor:
     return g.reshape(shape)
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _width_placements(placements, ndim: int, w_shape):
+    """The placements widths of ``w_shape`` take beside a DTensor ``x`` of
+    ``ndim`` dims under ``placements``: sharded where ``x`` is sharded on a
+    trailing dim the widths do not broadcast along, else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    w_shape = tuple(w_shape)
+    off = ndim - len(w_shape)
+    return [Shard(p.dim - off) if isinstance(p, Shard) and p.dim - off >= 0
+            and w_shape[p.dim - off] != 1 else Replicate() for p in placements]
+
+
+def _local_shards(x, f, i):
+    """``(x_dt, x_local, f_local, i_local)`` for a call on DTensors.
+
+    ``x_dt`` is ``x`` with any pending reduction (``Partial``) made
+    ``Replicate`` (the quantizer is not linear), and the widths are placed
+    by :func:`_width_placements` beside it (a plain width is held whole by
+    every rank and sliced).  DTensor widths need a DTensor ``x``."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    if not _is_dtensor(x):
+        raise ValueError("fake-quant: DTensor widths need a DTensor x")
+    mesh = x.device_mesh
+    place = [Replicate() if p.is_partial() else p for p in x.placements]
+    if place != list(x.placements):
+        x = x.redistribute(mesh, place)
+    local = []
+    for w in (f, i):
+        if not _is_dtensor(w):
+            w = torch.as_tensor(w, dtype=torch.float32, device=x.to_local().device)
+        wp = _width_placements(x.placements, x.dim(), w.shape)
+        if not _is_dtensor(w):
+            w = distribute_tensor(w, mesh, wp, src_data_rank=None)
+        elif list(w.placements) != wp:
+            w = w.redistribute(mesh, wp)
+        local.append(w.to_local())
+    return x, x.to_local(), local[0], local[1]
+
+
+class _Placed:
+    """A DTensor's mesh, placements and shape, without its data."""
+
+    def __init__(self, x):
+        self.mesh, self.placements, self.shape = x.device_mesh, tuple(x.placements), x.shape
+
+    def from_local(self, out: torch.Tensor):
+        """``out``, a contiguous local shard, as a DTensor placed so."""
+        from torch.distributed.tensor import DTensor
+
+        stride = torch.empty(self.shape, device="meta").stride()
+        return DTensor.from_local(out, self.mesh, self.placements, run_check=False,
+                                  shape=self.shape, stride=stride)
+
+
 class FakeQuant(torch.autograd.Function):
     """Fake-quant with integer-valued ``(f, i)`` tensors and the analytic
     surrogate VJP (``repro.core.quant._fq_core``).  ``f``/``i`` broadcast
-    against ``x``; their gradients are reduced back to their own shapes."""
+    against ``x``; their gradients are reduced back to their own shapes.
+
+    On DTensors both passes run on the local shards (:func:`_local_shards`):
+    the forward is one B1 call on the shard, the backward the surrogate on
+    the shard, and a width's gradient is ``Partial`` (summed over ranks when
+    it is read) on each mesh dim where ``x`` is sharded and the width is
+    not.  The backward keeps ``x``'s placement (:class:`_Placed`), not the
+    DTensor: a tensor held on ``ctx`` outside ``save_for_backward`` outlives
+    a checkpointed layer's forward."""
 
     @staticmethod
     def forward(ctx, x, f, i, signed: bool, overflow: str):
-        ctx.save_for_backward(x, f, i)
         ctx.signed, ctx.overflow = signed, overflow
-        return _fq_forward(x, f, i, signed, overflow)
+        ctx.dt = None
+        if any(_is_dtensor(t) for t in (x, f, i)):
+            w_dt = [_is_dtensor(w) for w in (f, i)]
+            xd, x, f, i = _local_shards(x, f, i)
+            ctx.dt = (_Placed(xd), w_dt)
+        ctx.save_for_backward(x, f, i)
+        out = _fq_forward(x, f, i, signed, overflow)
+        return out if ctx.dt is None else ctx.dt[0].from_local(out)
 
     @staticmethod
     def backward(ctx, g):
         x, f, i = ctx.saved_tensors
-        return (*_fq_bwd(x, f, i, ctx.signed, ctx.overflow, g), None, None)
+        if ctx.dt is None:
+            return (*_fq_bwd(x, f, i, ctx.signed, ctx.overflow, g), None, None)
+        return (*_fq_bwd_shards(x, f, i, ctx, g), None, None)
+
+
+def _fq_bwd_shards(x, f, i, ctx, g):
+    """:func:`_fq_bwd` on the local shards of a DTensor call, its gradients
+    placed back as DTensors (each width's as the width came in)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    xp, w_dt = ctx.dt
+    if isinstance(g, DTensor):
+        if tuple(g.placements) != xp.placements:
+            g = g.redistribute(xp.mesh, xp.placements)
+        g = g.to_local()
+    dx, df, di = _fq_bwd(x, f, i, ctx.signed, ctx.overflow, g)
+    out = [xp.from_local(dx.contiguous())]
+    for dw, dt in zip((df, di), w_dt):
+        wp = _width_placements(xp.placements, len(xp.shape), dw.shape)
+        place = [Partial() if p.is_shard() and not q.is_shard() else q
+                 for p, q in zip(xp.placements, wp)]
+        d = DTensor.from_local(dw, xp.mesh, place, run_check=False)
+        out.append(d if dt else d.redistribute(xp.mesh, [Replicate()] * len(place)).to_local())
+    return out
 
 
 def fq_surrogate(x: torch.Tensor, f: torch.Tensor, i: torch.Tensor, *,

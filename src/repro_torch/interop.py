@@ -270,9 +270,15 @@ def lm_params_from_numpy(model, tree: Dict):
     return model
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def lm_params_to_numpy(model) -> Dict:
-    """The model's parameters as the reference's nested dict of numpy arrays."""
-    return nest({k: p.detach().cpu().numpy().copy()
+    """The model's parameters as the reference's nested dict of numpy arrays
+    (a model on a mesh gives its whole arrays)."""
+    return nest({k: _whole(p.detach()).cpu().numpy().copy()
                  for k, p in model.flat_params().items()})
 
 
@@ -292,9 +298,9 @@ def lm_opt_state_from_numpy(model, tree: Dict) -> Dict:
 
 def lm_opt_state_to_numpy(model, opt_state: Dict) -> Dict:
     """The port's Adam state of ``model`` in the reference's nested form."""
-    out: Dict = {"step": np.int32(int(opt_state["step"]))}
+    out: Dict = {"step": np.int32(int(_whole(opt_state["step"])))}
     for mv in ("m", "v"):
-        out[mv] = nest({k: opt_state[mv][k].detach().cpu().numpy().copy()
+        out[mv] = nest({k: _whole(opt_state[mv][k].detach()).cpu().numpy().copy()
                         for k in model.flat_params()})
     return out
 

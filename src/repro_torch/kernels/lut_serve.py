@@ -158,16 +158,30 @@ class ServeEngine:
     n_launches: int = 0         # launches per batch (pallas: 1; fused /
                                 # generic: one op bundle per stage / group)
     packed_table_bytes: int = 0  # lane-packed table bytes ("pallas" only)
+    mesh: object = None          # DeviceMesh | None — request batches shard over DP
 
     def run(self, x_codes) -> torch.Tensor:
         """(B, n_inputs) integer codes -> (B, n_outputs) codes on the device.
 
         Same contract as ``DaisProgram.run`` (grids ``input_f`` in,
-        ``output_f`` out).
+        ``output_f`` out).  On a mesh of more than one rank the batch is
+        sharded over its DP axes (``parallel.sharding.shard_batch``), each
+        rank runs its rows, and every rank gets the whole result back (the
+        reference's global array); on a one-rank mesh the batch runs as
+        without a mesh (the reference skips its placement there too).
         """
         x = torch.as_tensor(x_codes, device=self.device).to(self.dtype)
         if x.dim() == 1:
             x = x[None]
+        if self.mesh is not None and self.mesh.size() > 1:
+            from torch.distributed.tensor import DTensor
+
+            from repro_torch.parallel.sharding import shard_batch
+
+            xd = shard_batch(x, self.mesh)
+            out = self._runner(xd.to_local().contiguous())
+            return DTensor.from_local(out, self.mesh, xd.placements,
+                                      run_check=False).full_tensor()
         return self._runner(x.contiguous())
 
     def clone(self) -> "ServeEngine":
@@ -199,7 +213,7 @@ class ServeEngine:
         return warmed
 
 
-def compile_program(prog: DaisProgram, *, device="cuda",
+def compile_program(prog: DaisProgram, *, mesh=None, device="cuda",
                     dtype: Optional[torch.dtype] = None,
                     engine: Optional[str] = "fused",
                     stages: Optional["FusedStages"] = None,
@@ -230,6 +244,10 @@ def compile_program(prog: DaisProgram, *, device="cuda",
     Given ``stages`` there is no analysis, as in the reference: the dtype
     comes from ``required_width()`` and the stored payload keeps the lanes
     it was saved with.
+
+    ``mesh``: an optional ``DeviceMesh`` — the batch axis of the inputs
+    shards over its DP axes (``ServeEngine.run``); the program itself is
+    replicated, as in the reference.
     """
     want = "fused" if engine is None else engine
     if want not in ("pallas", "fused", "groups"):
@@ -281,7 +299,7 @@ def compile_program(prog: DaisProgram, *, device="cuda",
         n_inputs=len(prog.input_f), n_outputs=len(prog.outputs),
         n_groups=n_groups, dtype=dtype, device=device, path=path,
         fuse_reason="; ".join(downgrades), output_f=list(prog.output_f),
-        _runner=run, n_launches=n_launches, packed_table_bytes=packed_bytes)
+        _runner=run, n_launches=n_launches, packed_table_bytes=packed_bytes, mesh=mesh)
 
 
 # --------------------------------------------------------------------------- #

@@ -231,12 +231,22 @@ def main(argv=None):
         raise SystemExit("--device cuda but no CUDA device is available")
     if lm:
         return serve_float(args, device)
-    if args.models or args.replicas > 1:
-        return serve_tier(args, device)
-    built = _tables_engine(args, device)
-    if args.serve_loop:
-        return serve_loop(args, built.prog, built.engine)
-    serve_batches(args, device, built)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    own_group = not dist.is_initialized()
+    mesh = make_local_mesh(device.type)
+    try:
+        if args.models or args.replicas > 1:
+            return serve_tier(args, device, mesh)
+        built = _tables_engine(args, device, mesh)
+        if args.serve_loop:
+            return serve_loop(args, built.prog, built.engine)
+        serve_batches(args, device, built)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 def _sync(device) -> None:
@@ -323,13 +333,13 @@ def serve_float(args, device) -> dict:
             "model": model, "logits": logits}
 
 
-def _spec(args, *, verify: str, optimize: bool = False):
+def _spec(args, mesh, *, verify: str, optimize: bool = False):
     from repro_torch.serve.api import EngineSpec
 
     require = ("pallas" if args.require_pallas
                else "fused" if args.require_fused else None)
     return EngineSpec(engine="pallas" if args.engine == "pallas" else "fused",
-                      require=require, optimize=optimize, verify=verify,
+                      mesh=mesh, require=require, optimize=optimize, verify=verify,
                       verify_rtl=args.verify_rtl, n_random=2048, seed=args.seed)
 
 
@@ -342,7 +352,7 @@ def _report_rtl(built) -> None:
           f"{rtl['verilog_sha256'][:12]}, {built.timings['rtl_s']:.2f}s)")
 
 
-def _tables_engine(args, device):
+def _tables_engine(args, device, mesh=None):
     """Build (or cold-start) the verified engine per the CLI flags.
 
     ``--artifact`` file exists: ``build(path, spec)`` loads the bundle
@@ -362,7 +372,7 @@ def _tables_engine(args, device):
                 "existing bundle (its stages and attestation cover the "
                 "stored program).  Delete the bundle (or point --artifact "
                 "elsewhere) and re-run with --dce to save an optimized one.")
-        spec = _spec(args, verify="cached" if args.skip_verify_cached else "full")
+        spec = _spec(args, mesh, verify="cached" if args.skip_verify_cached else "full")
         try:
             built = build(args.artifact, spec, device=device)
         except EngineRequirementError as e:
@@ -395,7 +405,7 @@ def _tables_engine(args, device):
         from repro_torch.launch.lint import lint_program
         lint_program(prog, name=what)
     try:
-        built = build(prog, _spec(args, verify="full", optimize=args.dce),
+        built = build(prog, _spec(args, mesh, verify="full", optimize=args.dce),
                       device=device)
     except EngineRequirementError as e:
         raise SystemExit(str(e))
@@ -410,7 +420,7 @@ def _tables_engine(args, device):
     print(f"[serve] {what} instrs={prog.n_instrs()} "
           f"path={engine.path} groups={engine.n_groups} "
           f"dtype={str(engine.dtype).replace('torch.', '')} "
-          f"device={device}{pk}")
+          f"device={device} mesh={_mesh_shape(mesh)}{pk}")
     print(f"[serve] bit-exact gate PASSED: {gate['random']} random + "
           f"{gate['exhaustive']} exhaustive rows vs DaisProgram.run "
           f"(lower {t_lower:.2f}s, gate {built.timings['gate_s']:.2f}s)")
@@ -493,7 +503,11 @@ def serve_loop(args, prog, engine) -> None:
           f"all {n} responses bit-exact vs DaisProgram.run")
 
 
-def serve_tier(args, device) -> None:
+def _mesh_shape(mesh):
+    return None if mesh is None else tuple(mesh.shape)
+
+
+def serve_tier(args, device, mesh=None) -> None:
     """Multi-replica, multi-model serving through the tier.
 
     ``--models a.npz,b.npz`` registers every bundle (names = file stems)
@@ -503,13 +517,14 @@ def serve_tier(args, device) -> None:
     against *that model's* ``DaisProgram.run``.
     """
     from repro_torch.kernels.lut_serve import input_code_bounds
+    from repro_torch.parallel.sharding import replica_meshes
     from repro_torch.serve.api import build, tier_from_built
     from repro_torch.serve.scheduler import RejectedError, ServeConfig
     from repro_torch.serve.tier import TierConfig
 
     built = {}
     if args.models:
-        spec = _spec(args, verify="cached" if args.skip_verify_cached else "full")
+        spec = _spec(args, mesh, verify="cached" if args.skip_verify_cached else "full")
         for path in args.models.split(","):
             name = os.path.splitext(os.path.basename(path))[0]
             built[name] = build(path, spec, device=device)
@@ -517,8 +532,10 @@ def serve_tier(args, device) -> None:
                   f"{built[name].content_hash[:12]} "
                   f"path={built[name].engine.path}")
     else:
-        built["default"] = _tables_engine(args, device)
+        built["default"] = _tables_engine(args, device, mesh)
 
+    placements = replica_meshes(mesh, args.replicas)
+    distinct = len({id(m) for m in placements})
     cfg = TierConfig(
         n_replicas=args.replicas,
         serve=ServeConfig(max_batch=args.max_batch,
@@ -527,8 +544,10 @@ def serve_tier(args, device) -> None:
                           slo_ms=args.slo_ms,
                           overload_policy=args.overload_policy))
     tier = tier_from_built(built, cfg)
+    n_dev = 1 if mesh is None else mesh.size()
     print(f"[tier] up: {args.replicas} replicas on {device} "
-          f"(time-multiplexed), models={sorted(built)}, "
+          f"({'disjoint sub-meshes' if distinct > 1 else 'time-multiplexed'}), "
+          f"mesh={_mesh_shape(mesh)} over {n_dev} device(s), models={sorted(built)}, "
           f"max_queue={args.max_queue}, policy={args.overload_policy}")
 
     n = max(args.requests, 1)

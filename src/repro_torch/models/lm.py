@@ -27,8 +27,15 @@ the reference's nested numpy dict (``interop.lm_params_*``).
   them at a longer ``cache_len`` at once (the launcher's grown cache);
   ``decode_step`` writes each layer's row into them in place.
 
-The reference's mesh hooks (``_constrain``, SP attention) are the identity
-on one card, as with ``mesh=None`` there, and are left out.
+* **Mesh** (``mesh=``, a ``DeviceMesh``): the parameters become DTensors
+  when ``train/steps.py`` places them (``init_state``, ``make_prefill``),
+  and the reference's sharding constraints run at its sites as
+  ``parallel/sharding.constrain``: the residual stream after each block
+  over (batch, -, -), the CE chunk's logits over (batch, -, model), MoE's
+  dispatch tensors, and K/V over their sequence when the head count does
+  not divide the ``model`` axis (``attn_sp``, SP attention).  Tensors
+  made inside the forward (positions, zeros) count as replicated
+  (``sharding.mesh_context``).  With ``mesh=None`` nothing of this runs.
 
 What the zoo's model classes share lives here too: ``ZooModel`` (the
 parameters registered by reference path from the class's ``defs_of(cfg)``,
@@ -52,6 +59,7 @@ from repro_torch.nn import moe as moem
 from repro_torch.nn.layers import (activation_fn, apply_norm, embed_lookup,
                                    layer_norm, norm_defs, rms_norm)
 from repro_torch.nn.params import PDef, flat_defs, init_tensor
+from repro_torch.parallel import sharding as shd
 
 LOSS_CHUNK = 256  # sequence chunk for the CE head
 
@@ -115,11 +123,12 @@ def lm_checkpoint_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     return out
 
 
-def ce_loss(x: Tensor, w: Tensor, labels: Tensor, remat: bool) -> Tensor:
+def ce_loss(x: Tensor, w: Tensor, labels: Tensor, remat: bool, mesh=None) -> Tensor:
     """Mean cross-entropy of the logits ``x @ w`` against ``labels`` over
     sequence chunks of ``LOSS_CHUNK`` tokens (each checkpointed with
-    ``remat``): the logits are a product in x's dtype widened to float32,
-    and the gold logit a gather."""
+    ``remat``): the logits are a product in x's dtype widened to float32
+    (on a mesh constrained to (batch, -, model)), and the gold logit a
+    gather."""
     labels = labels.long()
     b, s, _ = x.shape
     c = min(LOSS_CHUNK, s)
@@ -127,9 +136,15 @@ def ce_loss(x: Tensor, w: Tensor, labels: Tensor, remat: bool) -> Tensor:
         raise ValueError(f"sequence {s} is not a multiple of the CE chunk {c}")
 
     def ce_chunk(xk, lk):
-        logits = torch.matmul(xk, w).float()
+        logits = shd.constrain(torch.matmul(xk, w).float(), mesh, "batch", None, "model")
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lk[..., None])[..., 0]
+        if shd.is_sharded(logits, -1):
+            # a gather cannot index a sharded vocab: the reference's masked
+            # sum, each rank over its slice (ROADMAP C18)
+            hit = lk[..., None] == torch.arange(logits.shape[-1], device=lk.device)
+            gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+        else:
+            gold = torch.gather(logits, -1, lk[..., None])[..., 0]
         return torch.sum(lse - gold)
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -145,10 +160,11 @@ class ZooModel(nn.Module):
     from ``generator`` on ``device`` (``nn/params.py``'s distributions),
     the compute dtype, and the stacked parameters by prefix."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, mesh=None, *, device="cpu",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         self.compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         for path, d in flat_defs(self.defs()).items():
             self.register_parameter(path, nn.Parameter(init_tensor(d, generator, device)))
@@ -168,6 +184,32 @@ class ZooModel(nn.Module):
     def device(self) -> torch.device:
         return self.get_parameter("embed").device
 
+    def _lookup(self, tokens: Tensor) -> Tensor:
+        """The embeddings of ``tokens`` in the compute dtype; on a mesh
+        looked up by ``sharding.gather_rows`` and constrained to (batch, -,
+        -), so no pending reduction or sharded feature dim reaches the
+        first norm (C18)."""
+        table = self.get_parameter("embed")
+        if self.mesh is None:
+            return embed_lookup(table, tokens, self.compute_dtype)
+        x = shd.gather_rows(table, tokens.long()).to(self.compute_dtype)
+        return self._constrain(x, "batch", None, None)
+
+    def _constrain(self, x: Tensor, *axes) -> Tensor:
+        return shd.constrain(x, self.mesh, *axes)
+
+    def _rows(self, h: Tensor) -> Tensor:
+        """A norm's output on its way into a block's projections: on a mesh
+        made whole along ``model`` (its pending sum reduced, the Megatron
+        all-reduce), so DTensor does not gather the weights instead (C18)."""
+        return self._constrain(h, "batch", None, None)
+
+    def _constrain_fn(self):
+        """``constrain`` bound to the model's mesh, or None without one."""
+        if self.mesh is None:
+            return None
+        return lambda t, *ax: shd.constrain(t, self.mesh, *ax)
+
     def _stack(self, prefix: str) -> Dict[str, Tensor]:
         """The parameters under ``prefix/`` by their key below it."""
         n = len(prefix) + 1
@@ -184,9 +226,13 @@ class ZooModel(nn.Module):
         return torch.full((), s, dtype=torch.int32, device=self.device)
 
     def _zero_cache(self, b: int, t: int) -> Dict[str, Tensor]:
-        """``cache_defs(b, t)`` materialised as zeros on the model's device."""
-        return {k: torch.zeros(d.shape, dtype=d.dtype, device=self.device)
-                for k, d in self.cache_defs(b, t).items()}
+        """``cache_defs(b, t)`` materialised as zeros on the model's device
+        (on a mesh as DTensors under the cache's sharding rules)."""
+        defs = self.cache_defs(b, t)
+        place = (shd.flat_placements(defs, self.mesh, self.cfg.fsdp)
+                 if self.mesh is not None else {})
+        return {k: shd.zeros(d.shape, d.dtype, self.device, self.mesh, place.get(k))
+                for k, d in defs.items()}
 
     @staticmethod
     def _serve_logits(x_last: Tensor, w: Tensor) -> Tensor:
@@ -198,14 +244,16 @@ class DecoderLM(ZooModel):
     """The decoder LM of ``cfg`` with parameters drawn from ``generator``
     (``nn/params.py``'s distributions) on ``device``."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, mesh=None, *, device="cpu",
                  generator: Optional[torch.Generator] = None):
-        super().__init__(cfg, device=device, generator=generator)
+        super().__init__(cfg, mesh, device=device, generator=generator)
         self.attn_cfg = attn.AttnCfg(
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
             qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
             rope_theta=cfg.rope_theta, causal=True, q_chunk=cfg.q_chunk,
             remat_chunks=cfg.flash_remat)
+        # SP attention when the head count doesn't divide the model axis
+        self.attn_sp = mesh is not None and not shd.heads_shardable(cfg.n_heads, mesh)
         self._windows = self._layer_window_list()
 
     # ------------------------------------------------------------------ defs
@@ -241,7 +289,7 @@ class DecoderLM(ZooModel):
     # ----------------------------------------------------------------- embed
     def _embed_inputs(self, batch: Dict[str, Tensor]) -> Tensor:
         cfg = self.cfg
-        x = embed_lookup(self.get_parameter("embed"), batch["tokens"], self.compute_dtype)
+        x = self._lookup(batch["tokens"])
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
         if cfg.family == "vlm" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(x.dtype)
@@ -264,10 +312,12 @@ class DecoderLM(ZooModel):
         layer's own (K, V) with ``return_kv``, the updated caches with
         ``cache_kv``, else None."""
         cfg = self.cfg
-        h = apply_norm(pl, 0, x, cfg.norm_type, cfg.nonparam_norm)
+        h = self._rows(apply_norm(pl, 0, x, cfg.norm_type, cfg.nonparam_norm))
         if cache_kv is None:
+            kvc = self._constrain_fn() if self.attn_sp else None
             out = attn.multihead_attention(pl, h, self.attn_cfg, positions=positions,
-                                           window=window, return_kv=return_kv)
+                                           window=window, return_kv=return_kv,
+                                           kv_constrain=kvc)
             a, kv = out if return_kv else (out, None)
         else:
             kc, vc = cache_kv
@@ -275,12 +325,13 @@ class DecoderLM(ZooModel):
                                               window=window)
             kv = (kc, vc)
         x = x + a
-        h2 = apply_norm(pl, 1, x, cfg.norm_type, cfg.nonparam_norm)
+        h2 = self._rows(apply_norm(pl, 1, x, cfg.norm_type, cfg.nonparam_norm))
         eb = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.n_experts:
             m, aux = moem.moe_apply(pl, h2, activation_fn(cfg.act), top_k=cfg.top_k,
-                                    capacity_factor=cfg.capacity_factor)
+                                    capacity_factor=cfg.capacity_factor,
+                                    constrain=self._constrain_fn())
             if cfg.dense_residual:
                 drp = {k[3:]: v for k, v in pl.items() if k.startswith("dr_")}
                 dr, eb = mlpm.glu_apply(drp, h2, cfg.act, cfg.quant)
@@ -289,7 +340,7 @@ class DecoderLM(ZooModel):
             m, eb = mlpm.glu_apply(pl, h2, cfg.act, cfg.quant)
         else:
             m, eb = mlpm.mlp_apply(pl, h2, cfg.act, cfg.quant)
-        return x + m, kv, eb, aux
+        return self._constrain(x + m, "batch", None, None), kv, eb, aux
 
     # ------------------------------------------------------------------ fwd
     def hidden_states(self, batch) -> Tuple[Tensor, Tensor, Tensor]:
@@ -321,7 +372,7 @@ class DecoderLM(ZooModel):
         """Chunked-CE training loss + metrics. batch: tokens, labels (B,S)."""
         x, ebops, aux = self.hidden_states(batch)
         w = self._head_weight().to(self.compute_dtype)
-        ce = ce_loss(x, w, batch["labels"], self.cfg.ce_remat)
+        ce = ce_loss(x, w, batch["labels"], self.cfg.ce_remat, self.mesh)
         return ce, {"ce": ce, "ebops": ebops, "aux_loss": aux}
 
     # ------------------------------------------------------------- serving
@@ -347,16 +398,14 @@ class DecoderLM(ZooModel):
             raise ValueError(f"cache_len {t} is shorter than the prompt {s}")
         positions = self._positions(b, s)
         blocks = self._blocks()
-        shape = (cfg.n_layers, b, cfg.n_kv_heads, t, cfg.hd)
-        ks = torch.zeros(shape, dtype=self.compute_dtype, device=x.device)
-        vs = torch.zeros_like(ks)
+        cache = self._zero_cache(b, t)
         for l, w in enumerate(self._windows):
             x, (k, v), _, _ = self._block(self._layer(blocks, l), x, w, positions,
                                           return_kv=True)
-            ks[l, :, :, :s] = k.transpose(1, 2)
-            vs[l, :, :, :s] = v.transpose(1, 2)
+            shd.assign(cache["k"], (l, slice(None), slice(None), slice(0, s)), k.transpose(1, 2))
+            shd.assign(cache["v"], (l, slice(None), slice(None), slice(0, s)), v.transpose(1, 2))
         x = self._final_norm(x)
-        cache = {"k": ks, "v": vs, "index": self._index(s)}
+        cache["index"] = self._index(s)
         return self._serve_logits(x[:, -1], self._head_weight()), cache
 
     def decode_step(self, cache: Dict[str, Tensor], tokens: Tensor
@@ -367,7 +416,7 @@ class DecoderLM(ZooModel):
         in place; the returned dict holds those tensors and the index + 1."""
         cfg = self.cfg
         index = cache["index"]
-        x = embed_lookup(self.get_parameter("embed"), tokens[:, None], self.compute_dtype)
+        x = self._lookup(tokens[:, None])
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
         blocks = self._blocks()
         for l, w in enumerate(self._windows):

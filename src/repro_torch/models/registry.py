@@ -32,8 +32,10 @@ def model_class(cfg: ArchConfig):
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def build_model(cfg: ArchConfig, *, device="cpu",
+def build_model(cfg: ArchConfig, mesh=None, *, device="cpu",
                 generator: Optional[torch.Generator] = None):
     """The model of ``cfg`` on ``device``, its parameters drawn from
-    ``generator``."""
-    return model_class(cfg)(cfg, device=device, generator=generator)
+    ``generator`` (on ``device="meta"``: shapes only, nothing drawn).  With a
+    ``mesh`` (a ``DeviceMesh``) the model runs the reference's sharding
+    constraints; ``train/steps.py`` places its parameters on the mesh."""
+    return model_class(cfg)(cfg, mesh, device=device, generator=generator)

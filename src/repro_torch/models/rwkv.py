@@ -25,8 +25,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import TensorSpec, ZooModel, _ckpt, ce_loss
 from repro_torch.nn import ssm
-from repro_torch.nn.layers import embed_lookup, layer_norm
+from repro_torch.nn.layers import layer_norm
 from repro_torch.nn.params import PDef
+from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
 STATE_KEYS = ("wkv", "shift_t", "shift_c")
@@ -57,13 +58,13 @@ class RWKV6LM(ZooModel):
 
     def _block(self, pl: dict, x: Tensor, state: Optional[dict]):
         """One layer -> (x, its new wkv / shift_t / shift_c states)."""
-        a, st_t = ssm.rwkv6_time_mix(pl, self._ln(x, "norm0", pl), state)
+        a, st_t = ssm.rwkv6_time_mix(pl, self._rows(self._ln(x, "norm0", pl)), state)
         x = x + a
-        c, st_c = ssm.rwkv6_channel_mix(pl, self._ln(x, "norm1", pl), state)
-        return x + c, {**st_t, **st_c}
+        c, st_c = ssm.rwkv6_channel_mix(pl, self._rows(self._ln(x, "norm1", pl)), state)
+        return self._constrain(x + c, "batch", None, None), {**st_t, **st_c}
 
     def _embed(self, tokens: Tensor) -> Tensor:
-        x = embed_lookup(self.get_parameter("embed"), tokens, self.compute_dtype)
+        x = self._lookup(tokens)
         return self._ln(x, "ln_in")
 
     # ------------------------------------------------------------------ fwd
@@ -86,7 +87,7 @@ class RWKV6LM(ZooModel):
         """Chunked-CE training loss + metrics. batch: tokens, labels (B,S)."""
         x, ebops, aux = self.hidden_states(batch)
         ce = ce_loss(x, self.get_parameter("head").to(self.compute_dtype), batch["labels"],
-                     self.cfg.ce_remat)
+                     self.cfg.ce_remat, self.mesh)
         return ce, {"ce": ce, "ebops": ebops, "aux_loss": aux}
 
     # -------------------------------------------------------------- serving
@@ -113,7 +114,7 @@ class RWKV6LM(ZooModel):
                      for k in STATE_KEYS}
             x, st = self._block(self._layer(blocks, l), x, state)
             for k in STATE_KEYS:
-                cache[k][l] = st[k]
+                shd.assign(cache[k], (l,), st[k])
         return self._ln(x, "final_norm")
 
     def prefill(self, batch, cache_len: Optional[int] = None

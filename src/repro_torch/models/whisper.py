@@ -20,9 +20,12 @@ reference's paths and shapes (``enc_blocks/*``, ``dec_blocks/x_wq``...).
   the loss.
 * Each weight is cast to the compute dtype where it is used; the norm
   scales and biases are used in float32.  The decoder positions stop at
-  ``MAX_DEC_POS``: ``prefill`` refuses a longer prompt, and
-  ``launch/serve.py`` a longer prompt + generation (the reference's
-  ``jnp.take`` fills NaN past it; a CUDA gather would assert).
+  ``MAX_DEC_POS``: ``prefill`` refuses a cache (``cache_len``, default
+  the prompt) longer than that, a host check with no sync, and
+  ``launch/serve.py`` a longer prompt + generation; a decode past the
+  cache raises (ROADMAP C16: the reference's ``jnp.take`` fills NaN past
+  the positions and its cache write clamps onto the last row, where a
+  CUDA gather would assert).
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import TensorSpec, ZooModel, _ckpt, ce_loss
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mlp as mlpm
-from repro_torch.nn.layers import embed_lookup, layer_norm, sinusoidal_positions
+from repro_torch.nn.layers import layer_norm, sinusoidal_positions
 from repro_torch.nn.params import PDef
+from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
 
@@ -46,9 +50,9 @@ MAX_DEC_POS = 32768 + 8  # covers the decode_32k cell
 class WhisperEncDec(ZooModel):
     max_positions = MAX_DEC_POS
 
-    def __init__(self, cfg: ArchConfig, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, mesh=None, *, device="cpu",
                  generator: Optional[torch.Generator] = None):
-        super().__init__(cfg, device=device, generator=generator)
+        super().__init__(cfg, mesh, device=device, generator=generator)
         base = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                     use_rope=False, q_chunk=cfg.q_chunk, remat_chunks=cfg.flash_remat)
         self.enc_attn = attn.AttnCfg(causal=False, **base)
@@ -98,9 +102,11 @@ class WhisperEncDec(ZooModel):
             pl = self._layer(blocks, l)
 
             def body(x_in, pl=pl):
-                x_in = x_in + attn.multihead_attention(pl, self._ln(pl, 0, x_in), self.enc_attn)
-                m, _ = mlpm.mlp_apply(pl, self._ln(pl, 1, x_in), self.cfg.act, self.cfg.quant)
-                return x_in + m
+                x_in = x_in + attn.multihead_attention(pl, self._rows(self._ln(pl, 0, x_in)),
+                                                       self.enc_attn)
+                m, _ = mlpm.mlp_apply(pl, self._rows(self._ln(pl, 1, x_in)), self.cfg.act,
+                                      self.cfg.quant)
+                return self._constrain(x_in + m, "batch", None, None)
 
             x = _ckpt(body, x) if self.cfg.remat else body(x)
         return self._final_ln(x, "enc_norm")
@@ -116,7 +122,7 @@ class WhisperEncDec(ZooModel):
         cross K/V, each (B,T,K,hd); decode: ``cache`` holds the layer's
         ``k``/``v``/``xk``/``xv`` and the self K/V row is written in place.
         Returns (x, the self (K, V) with ``return_kv`` else None, ebops)."""
-        h = self._ln(pl, 0, x)
+        h = self._rows(self._ln(pl, 0, x))
         self_kv = None
         if cache is None:
             out = attn.multihead_attention(pl, h, self.dec_attn, positions=positions,
@@ -125,7 +131,7 @@ class WhisperEncDec(ZooModel):
         else:
             a, _, _ = attn.decode_attention(pl, h, self.dec_attn, cache["k"], cache["v"], index)
         x = x + a
-        h2 = self._ln(pl, 1, x)
+        h2 = self._rows(self._ln(pl, 1, x))
         if cache is None:
             c = attn.multihead_attention(pl, h2, self.dec_attn, kv=cross_kv, prefix="x_")
         else:
@@ -134,14 +140,14 @@ class WhisperEncDec(ZooModel):
                                       cache["xv"].transpose(1, 2), self.dec_attn, causal=False)
             c = attn._out_proj(out, pl["x_wo"], x.dtype)
         x = x + c
-        m, eb = mlpm.mlp_apply(pl, self._ln(pl, 2, x), self.cfg.act, self.cfg.quant)
-        return x + m, self_kv, eb
+        m, eb = mlpm.mlp_apply(pl, self._rows(self._ln(pl, 2, x)), self.cfg.act, self.cfg.quant)
+        return self._constrain(x + m, "batch", None, None), self_kv, eb
 
     def _dec_inputs(self, tokens: Tensor) -> Tensor:
         s = tokens.shape[1]
         if s > MAX_DEC_POS:
             raise ValueError(f"{s} decoder tokens: Whisper's positions stop at {MAX_DEC_POS}")
-        x = embed_lookup(self.get_parameter("embed"), tokens, self.compute_dtype)
+        x = self._lookup(tokens)
         return x + self.get_parameter("dec_pos")[:s].to(x.dtype)[None]
 
     def hidden_states(self, batch) -> Tuple[Tensor, Tensor, Tensor]:
@@ -172,7 +178,8 @@ class WhisperEncDec(ZooModel):
     def loss(self, batch) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Chunked-CE training loss + metrics. batch: frames, tokens, labels."""
         x, ebops, aux = self.hidden_states(batch)
-        ce = ce_loss(x, self._head().to(self.compute_dtype), batch["labels"], self.cfg.ce_remat)
+        ce = ce_loss(x, self._head().to(self.compute_dtype), batch["labels"], self.cfg.ce_remat,
+                     self.mesh)
         return ce, {"ce": ce, "ebops": ebops, "aux_loss": aux}
 
     # -------------------------------------------------------------- serving
@@ -196,6 +203,9 @@ class WhisperEncDec(ZooModel):
         t = s if cache_len is None else cache_len
         if t < s:
             raise ValueError(f"cache_len {t} is shorter than the prompt {s}")
+        if t > self.max_positions:
+            raise ValueError(f"cache_len {t} is past the decoder's {self.max_positions} "
+                             f"positions")
         enc_out = self.encode(batch["frames"])
         x = self._dec_inputs(batch["tokens"])
         positions = self._positions(b, s)
@@ -205,10 +215,11 @@ class WhisperEncDec(ZooModel):
             pl = self._layer(blocks, l)
             xk, xv = self._cross_kv(pl, enc_out)
             x, (k, v), _ = self._dec_block(pl, x, (xk, xv), positions, return_kv=True)
-            cache["k"][l, :, :, :s] = k.transpose(1, 2)
-            cache["v"][l, :, :, :s] = v.transpose(1, 2)
-            cache["xk"][l] = xk.transpose(1, 2)
-            cache["xv"][l] = xv.transpose(1, 2)
+            rows = (l, slice(None), slice(None), slice(0, s))
+            shd.assign(cache["k"], rows, k.transpose(1, 2))
+            shd.assign(cache["v"], rows, v.transpose(1, 2))
+            shd.assign(cache["xk"], (l,), xk.transpose(1, 2))
+            shd.assign(cache["xv"], (l,), xv.transpose(1, 2))
         x = self._final_ln(x, "dec_norm")
         cache["index"] = self._index(s)
         return self._serve_logits(x[:, -1], self._head()), cache
@@ -218,8 +229,8 @@ class WhisperEncDec(ZooModel):
         """One serve step: next-token logits + the cache (self K/V rows
         written in place). tokens (B,)."""
         index = cache["index"]
-        x = embed_lookup(self.get_parameter("embed"), tokens[:, None], self.compute_dtype)
-        pos = self.get_parameter("dec_pos").index_select(0, index.reshape(1).long())
+        x = self._lookup(tokens[:, None])
+        pos = shd.gather_rows(self.get_parameter("dec_pos"), index.reshape(1).long())
         x = x + pos.to(x.dtype)[None]
         blocks = self._stack("dec_blocks")
         for l in range(self.cfg.n_layers):

@@ -38,16 +38,17 @@ from repro_torch.models.lm import TensorSpec, ZooModel, _ckpt, ce_loss
 from repro_torch.nn import attention as attn
 from repro_torch.nn import mlp as mlpm
 from repro_torch.nn import ssm
-from repro_torch.nn.layers import embed_lookup, rms_norm
+from repro_torch.nn.layers import rms_norm
 from repro_torch.nn.params import PDef
+from repro_torch.parallel import sharding as shd
 
 Tensor = torch.Tensor
 
 
 class ZambaHybrid(ZooModel):
-    def __init__(self, cfg: ArchConfig, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, mesh=None, *, device="cpu",
                  generator: Optional[torch.Generator] = None):
-        super().__init__(cfg, device=device, generator=generator)
+        super().__init__(cfg, mesh, device=device, generator=generator)
         self.attn_cfg = attn.AttnCfg(
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
             rope_theta=cfg.rope_theta, causal=True, q_chunk=cfg.q_chunk,
@@ -81,7 +82,7 @@ class ZambaHybrid(ZooModel):
         """The shared attention + GLU block.  Returns (x, kv, ebops): kv is
         the block's own (K, V) with ``return_kv``, the updated caches with
         ``cache_kv``, else None."""
-        h = rms_norm(x, sp["norm0"])
+        h = self._rows(rms_norm(x, sp["norm0"]))
         if cache_kv is None:
             out = attn.multihead_attention(sp, h, self.attn_cfg, positions=positions,
                                            return_kv=return_kv)
@@ -90,16 +91,17 @@ class ZambaHybrid(ZooModel):
             a, kc, vc = attn.decode_attention(sp, h, self.attn_cfg, *cache_kv, index)
             kv = (kc, vc)
         x = x + a
-        h2 = rms_norm(x, sp["norm1"])
+        h2 = self._rows(rms_norm(x, sp["norm1"]))
         m, eb = mlpm.glu_apply(sp, h2, self.cfg.act, self.cfg.quant)
         return x + m, kv, eb
 
     def _mamba(self, pl: dict, x: Tensor, state: Optional[dict] = None):
-        m, st = ssm.mamba2_apply(pl, rms_norm(x, pl["norm0"]), self.cfg.ssm_state, state)
+        m, st = ssm.mamba2_apply(pl, self._rows(rms_norm(x, pl["norm0"])), self.cfg.ssm_state,
+                                 state)
         return x + m, st
 
     def _embed(self, tokens: Tensor) -> Tensor:
-        return embed_lookup(self.get_parameter("embed"), tokens, self.compute_dtype)
+        return self._lookup(tokens)
 
     # ------------------------------------------------------------------ fwd
     def hidden_states(self, batch) -> Tuple[Tensor, Tensor, Tensor]:
@@ -114,10 +116,10 @@ class ZambaHybrid(ZooModel):
 
             def body(x_in, pl=pl, flag=flag):
                 y, _ = self._mamba(pl, x_in)
-                if not flag:
-                    return y, None
-                y, _, eb = self._shared_block(sp, y, positions)
-                return y, eb
+                eb = None
+                if flag:
+                    y, _, eb = self._shared_block(sp, y, positions)
+                return self._constrain(y, "batch", None, None), eb
 
             x, eb = _ckpt(body, x) if self.cfg.remat else body(x)
             if eb is not None:
@@ -130,7 +132,7 @@ class ZambaHybrid(ZooModel):
         """Chunked-CE training loss + metrics. batch: tokens, labels (B,S)."""
         x, ebops, aux = self.hidden_states(batch)
         ce = ce_loss(x, self.get_parameter("head").to(self.compute_dtype), batch["labels"],
-                     self.cfg.ce_remat)
+                     self.cfg.ce_remat, self.mesh)
         return ce, {"ce": ce, "ebops": ebops, "aux_loss": aux}
 
     # -------------------------------------------------------------- serving
@@ -173,12 +175,13 @@ class ZambaHybrid(ZooModel):
             zero = {"ssm": torch.zeros_like(cache["ssm"][l]),
                     "conv": torch.zeros_like(cache["conv"][l])}
             x, st = self._mamba(self._layer(blocks, l), x, zero)
-            cache["ssm"][l] = st["ssm"]
-            cache["conv"][l] = st["conv"]
+            shd.assign(cache["ssm"], (l,), st["ssm"])
+            shd.assign(cache["conv"], (l,), st["conv"])
             if flag:
                 x, (k, v), _ = self._shared_block(sp, x, positions, return_kv=True)
-                cache["k"][app, :, :, :s] = k.transpose(1, 2)
-                cache["v"][app, :, :, :s] = v.transpose(1, 2)
+                rows = (app, slice(None), slice(None), slice(0, s))
+                shd.assign(cache["k"], rows, k.transpose(1, 2))
+                shd.assign(cache["v"], rows, v.transpose(1, 2))
                 app += 1
         x = rms_norm(x, self.get_parameter("final_norm"))
         cache["index"] = self._index(s)
@@ -195,8 +198,8 @@ class ZambaHybrid(ZooModel):
         for l, flag in enumerate(self._flags):
             x, st = self._mamba(self._layer(blocks, l), x,
                                 {"ssm": cache["ssm"][l], "conv": cache["conv"][l]})
-            cache["ssm"][l] = st["ssm"]
-            cache["conv"][l] = st["conv"]
+            shd.assign(cache["ssm"], (l,), st["ssm"])
+            shd.assign(cache["conv"], (l,), st["conv"])
             if flag:
                 x, _, _ = self._shared_block(sp, x, None, index=index,
                                              cache_kv=(cache["k"][app], cache["v"][app]))

@@ -3,9 +3,10 @@
 
 Every model builds a nested dict of :class:`PDef` (shape + logical axis
 names + initializer); :func:`init_params` materialises it with the
-reference's distributions and :func:`count_params` sums its sizes.  The
-logical axes are kept for the reference's sharding rules, which wait for the
-mesh slice (ROADMAP A9c), as does ``param_shapes``.  ``torch.Generator``
+reference's distributions, :func:`param_shapes` gives it as ``meta``
+tensors (nothing drawn or stored: the dry-run builds any width this way)
+and :func:`count_params` sums its sizes.  The logical axes feed the
+sharding rules (``parallel/sharding.py``).  ``torch.Generator``
 and ``jax.random`` give different numbers from one seed: parameters cross
 between the packages as numpy (``interop.lm_params_*``), never by seed.
 """
@@ -49,7 +50,10 @@ def init_tensor(d: PDef, generator: Optional[torch.Generator], device) -> torch.
     uniform(-scale, scale) / const(scale).  Random values are drawn on the
     generator's device (a CUDA generator draws a full-width model in
     milliseconds; a CPU one gives the same values whatever ``device`` is),
-    then moved to ``device``."""
+    then moved to ``device``.  On ``device="meta"`` nothing is drawn or
+    stored: the tensor has the shape and dtype alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(d.shape, dtype=d.dtype, device="meta")
     gdev = generator.device if generator is not None else torch.device("cpu")
     if d.init == "zeros":
         t = torch.zeros(d.shape, dtype=d.dtype, device=device)
@@ -76,6 +80,12 @@ def init_params(defs, generator: Optional[torch.Generator] = None,
     if isinstance(defs, PDef):
         return init_tensor(defs, generator, device)
     return {k: init_params(v, generator, device) for k, v in defs.items()}
+
+
+def param_shapes(defs) -> Any:
+    """``defs`` as the same nesting of ``meta`` tensors of each PDef's shape
+    and dtype (the reference's ``ShapeDtypeStruct`` tree)."""
+    return init_params(defs, None, "meta")
 
 
 def count_params(defs) -> int:

@@ -49,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.nn.attention import _proj
 from repro_torch.nn.layers import rms_norm
 from repro_torch.nn.params import PDef
+from repro_torch.parallel.sharding import cumsum, grad_split_ready, split_ready
 
 MAMBA_HEAD = 64   # P: channels per SSD head
 RWKV_HEAD = 64    # head size of RWKV-6
@@ -132,11 +133,14 @@ def ssd_chunked(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     c = min(chunk, s)
     pad = -s % c
     nc = (s + pad) // c
-    l = _pad_steps(dt * a, pad).view(b, nc, c, h).transpose(2, 3)            # (b,z,h,c)
-    dtx = _pad_steps(dt[..., None] * xh, pad).view(b, nc, c, h, p).transpose(2, 3)
-    bm = _pad_steps(bmat, pad).view(b, nc, c, n)
-    cm = _pad_steps(cmat, pad).view(b, nc, c, n)
-    acum = torch.cumsum(l, dim=-1)                                           # A_t, inclusive
+    def steps(t):      # (b, s, ...) -> (b, nc, c, ...)
+        return split_ready(_pad_steps(t, pad), 1, nc).view(b, nc, c, *t.shape[2:])
+
+    l = steps(dt * a).transpose(2, 3)                                        # (b,z,h,c)
+    dtx = steps(dt[..., None] * xh).transpose(2, 3)
+    bm = steps(bmat)
+    cm = steps(cmat)
+    acum = cumsum(l, -1)                                                     # A_t, inclusive
     tri = torch.ones(c, c, dtype=torch.bool, device=xh.device).tril()
     seg = torch.where(tri, acum[..., :, None] - acum[..., None, :], float("-inf"))
     gmat = torch.matmul(cm, bm.transpose(-1, -2))                            # c_t . b_s
@@ -151,7 +155,7 @@ def ssd_chunked(xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     s_prev = torch.stack(prev, dim=1)                                        # (b,z,h,p,n)
     y_in = torch.matmul(s_prev, cm[:, :, None].transpose(-1, -2)).transpose(-1, -2)
     y = y + y_in * torch.exp(acum)[..., None]
-    y = y.transpose(2, 3).reshape(b, nc * c, h, p)[:, :s]
+    y = grad_split_ready(y.transpose(2, 3).reshape(b, nc * c, h, p), 1, nc)[:, :s]
     return y, state
 
 
@@ -178,13 +182,13 @@ def mamba2_apply(p: dict, x: Tensor, ssm_state: int, state: Optional[dict] = Non
     dt_in = torch.matmul(x, p["w_dt"].to(x.dtype)).float() + p["dt_bias"].float()
     dt = torch.logaddexp(dt_in, torch.zeros((), device=x.device))           # (B,S,H)
     a = -torch.exp(p["a_log"].float())                                      # (H,)
-    xh = xs.reshape(bsz, s, h, MAMBA_HEAD).float()
+    xh = split_ready(xs, -1, h).reshape(bsz, s, h, MAMBA_HEAD).float()
     s0 = (state["ssm"] if state is not None
           else torch.zeros((bsz, h, MAMBA_HEAD, n), dtype=torch.float32, device=x.device))
     run = ssd_scan if form == "scan" else ssd_chunked
     y, s_fin = run(xh, dt, a, bmat.float(), cmat.float(), s0)
     y = y + p["d_skip"].float()[:, None] * xh
-    y = y.reshape(bsz, s, di).to(x.dtype)
+    y = grad_split_ready(y.reshape(bsz, s, di), -1, h).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm_y"])
     out = torch.matmul(y, p["w_out"].to(x.dtype))
     new_state = {"ssm": s_fin, "conv": new_conv} if state is not None else None
@@ -265,10 +269,11 @@ def wkv_chunked(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, s0: Te
     nc = (s + pad) // c
 
     def chunks(t):
-        return _pad_steps(t, pad).view(b, nc, c, h, dd).transpose(2, 3)     # (b,z,h,c,D)
+        t = split_ready(_pad_steps(t, pad), 1, nc)
+        return t.view(b, nc, c, h, dd).transpose(2, 3)                      # (b,z,h,c,D)
 
     r, k, v, lw = chunks(r), chunks(k), chunks(v), chunks(logw)
-    incl = torch.cumsum(lw, dim=3)                         # sum of log w up to t
+    incl = cumsum(lw, 3)                                   # sum of log w up to t
     excl = torch.cat([torch.zeros_like(incl[:, :, :, :1]), incl[:, :, :, :-1]], dim=3)
     y = torch.sum(r * u[:, None] * k, dim=-1, keepdim=True) * v              # the bonus
     step = max(1, RWKV_PAIR_ELEMS // (b * h * c * c * dd))
@@ -282,7 +287,8 @@ def wkv_chunked(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, s0: Te
         prev.append(state)
         state = dz[..., :, None] * state + sz
     y = y + torch.matmul(r * torch.exp(excl), torch.stack(prev, dim=1))
-    return y.transpose(2, 3).reshape(b, nc * c, h, dd)[:, :s], state
+    y = grad_split_ready(y.transpose(2, 3).reshape(b, nc * c, h, dd), 1, nc)
+    return y[:, :s], state
 
 
 def rwkv6_time_mix(p: dict, x: Tensor, state: Optional[dict],
@@ -307,13 +313,14 @@ def rwkv6_time_mix(p: dict, x: Tensor, state: Optional[dict],
           torch.zeros((bsz, h, RWKV_HEAD, RWKV_HEAD), dtype=torch.float32, device=x.device))
     rf, kf, vf = r.float(), k.float(), v.float()
     if form == "scan":
-        w = torch.exp(-torch.exp(wlog)).reshape(bsz, s, h, RWKV_HEAD)
+        w = split_ready(torch.exp(-torch.exp(wlog)), -1, h).reshape(bsz, s, h, RWKV_HEAD)
         y, s_fin = wkv_scan(rf, kf, vf, w, u, s0)
     else:
-        logw = -torch.exp(wlog).reshape(bsz, s, h, RWKV_HEAD)
+        logw = split_ready(-torch.exp(wlog), -1, h).reshape(bsz, s, h, RWKV_HEAD)
         y, s_fin = wkv_chunked(rf, kf, vf, logw, u, s0)
     y = rms_norm(y, p["ln_x"]).to(x.dtype) * F.silu(g)
-    out = torch.matmul(y.flatten(-2), p["w_o"].to(x.dtype).flatten(0, 1))
+    out = torch.matmul(grad_split_ready(y.flatten(-2), -1, h),
+                       grad_split_ready(p["w_o"].to(x.dtype).flatten(0, 1), 0, h))
     return out, {"wkv": s_fin, "shift_t": new_shift}
 
 

@@ -7,9 +7,14 @@ the rounding residual into the next step (error feedback):
     q, scale, state = compress(grads, state)      # int8 codes + fp scales
     grads_hat = decompress(q, scale)
 
-Trees are dicts of tensors, nested or flat.  The reference's
-``cross_pod_mean`` (a ``shard_map`` psum over a pod mesh axis) waits for the
-mesh slice (ROADMAP A9c).
+Trees are dicts of tensors, nested or flat.
+
+``cross_pod_mean`` is the reference's ``shard_map`` psum over the ``pod``
+axis as ``all_reduce`` over the mesh's ``pod`` group: each rank holds its
+pod's gradients as plain tensors, the int8 codes cross the pod hop summed
+in int32 and the scales as their maximum.  The reference's docstring names
+a ``wrap_cross_pod`` that builds the ``shard_map``; the reference has no
+such function, and the port has none either.
 """
 
 from __future__ import annotations
@@ -47,3 +52,26 @@ def compress(grads, ef_state):
 
 def decompress(q, scales):
     return _map(lambda qq, ss: qq.float() * ss, q, scales)
+
+
+def cross_pod_mean(grads, ef_state, mesh):
+    """Mean-reduce this rank's gradients across the mesh's ``pod`` axis
+    with an int8 wire format.  Returns ``(mean, new error-feedback state)``.
+
+    The int8 codes are summed in int32 (exact for <= 2^24 pods) with
+    ``all_reduce(SUM)`` over ``mesh.get_group("pod")``, then rescaled by the
+    largest of the pods' scales (``all_reduce(MAX)``) over the pod count."""
+    import torch.distributed as dist
+
+    n_pods = mesh.size(mesh.mesh_dim_names.index("pod"))
+    group = mesh.get_group("pod")
+    q, s, e = compress(grads, ef_state)
+
+    def reduce_one(qq, ss):
+        total = qq.to(torch.int32)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        smax = ss.clone()
+        dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+        return total.float() * smax / n_pods
+
+    return _map(reduce_one, q, s), e

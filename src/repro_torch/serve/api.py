@@ -62,10 +62,13 @@ class EngineSpec:
     * ``narrow`` — size the engine dtype from the proven ``engine_width``
       and narrow B4's table lanes to the proven value ranges; ``False``
       sizes from ``required_width()`` and packs full rows (the baseline).
+    * ``mesh`` — a ``DeviceMesh`` whose DP axes the request batches shard
+      over (``compile_program(mesh=)``); None runs on ``device`` alone.
     """
 
     engine: Optional[str] = "fused"
     dtype: Optional[torch.dtype] = None
+    mesh: object = None
     optimize: bool = False
     verify: str = "cached"
     verify_rtl: bool = False
@@ -158,7 +161,7 @@ def build(source: Union[DaisProgram, LoadedArtifact, str],
                 "optimized bundle instead")
         prog = source.prog
         t0 = time.monotonic()
-        engine = compile_program(prog, device=device, dtype=spec.dtype,
+        engine = compile_program(prog, mesh=spec.mesh, device=device, dtype=spec.dtype,
                                  stages=source.stages, engine=spec.engine,
                                  packed=source.packed, narrow=spec.narrow)
         timings["compile_s"] = time.monotonic() - t0
@@ -190,7 +193,7 @@ def build(source: Union[DaisProgram, LoadedArtifact, str],
         timings["dce_s"] = time.monotonic() - t0
         timings["dce_summary"] = report.summary()
     t0 = time.monotonic()
-    engine = compile_program(prog, device=device, dtype=spec.dtype,
+    engine = compile_program(prog, mesh=spec.mesh, device=device, dtype=spec.dtype,
                              engine=spec.engine, narrow=spec.narrow)
     timings["compile_s"] = time.monotonic() - t0
     _enforce(spec, engine)

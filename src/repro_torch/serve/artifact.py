@@ -333,7 +333,7 @@ def load_artifact(path: str) -> LoadedArtifact:
                           content_hash=digest, packed=packed)
 
 
-def build_engine(art: LoadedArtifact, *, device="cuda",
+def build_engine(art: LoadedArtifact, *, mesh=None, device="cuda",
                  engine: Optional[str] = None) -> ServeEngine:
     """Deprecated: use ``repro_torch.serve.api.build(art, EngineSpec(...))``.
 
@@ -349,5 +349,5 @@ def build_engine(art: LoadedArtifact, *, device="cuda",
         "build_engine(art, ...) is deprecated; use repro_torch.serve.api."
         "build(art, EngineSpec(engine=..., verify=...)).engine",
         DeprecationWarning, stacklevel=2)
-    return compile_program(art.prog, device=device, stages=art.stages,
+    return compile_program(art.prog, mesh=mesh, device=device, stages=art.stages,
                            engine=engine, packed=art.packed)

@@ -1073,3 +1073,26 @@ def test_zoo_b1_launches(device, arch, per_forward):
         torch.cuda.synchronize()
         want = per_forward // 2 if arch == "whisper_base" else per_forward
         assert ops.launch_counts()["fake_quant"] - before == want
+
+
+def test_lm_mesh_step_equals_none(device):
+    """The smoke Qwen1.5 on a one-device mesh (``make_local_mesh``, nccl)
+    against ``mesh=None``: two train steps, then a prefill and greedy
+    decode steps, every loss, parameter, Adam moment, logit and cache bit
+    for bit, and B1 as often both ways (``chip_smoke.mesh_train`` /
+    ``mesh_serve_lm``, phase 17's checks at the smoke widths)."""
+    import chip_smoke
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.steps import TrainHParams
+
+    mesh = make_local_mesh("cuda")
+    try:
+        cfg = get_smoke("qwen15_05b")
+        models = chip_smoke.mesh_models(cfg, mesh, device)
+        chip_smoke.mesh_train(models, mesh, device, 2, 2, 32, TrainHParams(),
+                              2 * 5 * cfg.n_layers)
+        chip_smoke.mesh_serve_lm(models, mesh, device, 32, 2, 4, 5 * cfg.n_layers)
+    finally:
+        dist.destroy_process_group()

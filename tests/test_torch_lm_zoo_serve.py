@@ -153,6 +153,34 @@ def test_prefill_cache_len_and_whisper_positions():
         tm._dec_inputs(torch.zeros((1, MAX_DEC_POS + 1), dtype=torch.int32))
 
 
+def _whisper():
+    _, _, tm = pair("whisper_base", "float32")
+    return tm, tb(zbatch(tm.cfg, B, S, mode="prefill"))
+
+
+def test_whisper_prefill_past_positions_refused_c16():
+    """C16: a cache past ``MAX_DEC_POS`` is refused at prefill (a host int,
+    no sync), where the reference's ``jnp.take`` returns NaN logits there;
+    a cache of exactly ``MAX_DEC_POS`` positions is taken."""
+    tm, nb = _whisper()
+    with pytest.raises(ValueError, match="positions"):
+        with torch.no_grad():
+            tm.prefill(nb, cache_len=tm.max_positions + 4)
+    from repro_torch.models.whisper import MAX_DEC_POS
+    assert tm.max_positions == MAX_DEC_POS
+
+
+def test_whisper_decode_past_the_cache_raises_c16():
+    """C16: a decode past the cache raises, where the reference's
+    ``dynamic_update_slice`` clamps and overwrites the last row."""
+    tm, nb = _whisper()
+    with torch.no_grad():
+        _, cache = tm.prefill(nb)
+        tok = torch.zeros((B,), dtype=torch.int32)
+        with pytest.raises((IndexError, RuntimeError)):
+            tm.decode_step(cache, tok)        # index S into a cache of S rows
+
+
 # ------------------------------------------------- attention's new arguments
 def _attn_case(seed=0, causal=True):
     cfg_j = jattn.AttnCfg(n_heads=4, n_kv=2, head_dim=8, q_chunk=4, causal=causal,
