@@ -30,7 +30,8 @@ line:
 4. kernel B3 (recompute backward) against its plain version at the same
    shapes with pruned cells, and one cell at a time at the edge widths f =
    +-127, i = -127, within ``B3_REL``; two launches bitwise equal; one
-   device kernel a call (profiler); no register spills at H = 8 (ptxas);
+   device kernel a call (a captured graph's kernel nodes); no register
+   spills at H = 8 (ptxas);
    then B3 past its unrolled instantiations (H = 17, 24, 32 at 20->5, B =
    16600: its generic kernel) within ``B3_REL``, a graph replay at H = 24,
    and one fused train step of a JSC-HLF stack at H = 24 against the plain
@@ -68,7 +69,10 @@ line:
    B4; then the modes timed in three interleaved rounds (medians and
    ranges of ms/step, host ms/step, steps/s, capture time and peak memory
    per k) and profiled once each (device busy and idle share, device
-   kernels per step; a replayed step runs B1 twice, B2 and B3 once);
+   kernels per step); a replayed step holds B1 twice, B2 and B3 once among
+   the kernel nodes of the graph ``make_chunked_step`` captured and counts
+   as many launches (the profile gives times only: one short of the
+   graph's nodes is taken again, and never ends the run);
 10. the PID hybrid (``models/pid.py``, ``examples/pid_hybrid.py``) at its
    own widths (HGQ conv front 20 -> 8, LUT-Conv 8 -> 8 and 8 -> 4 kernel 3
    SAME, LUT head 4 -> 1, hidden 8) on ``cepc_waveform``'s own 3000-sample
@@ -82,8 +86,9 @@ line:
    and served through B4 (B = 1024 and 16600 at 100, 1024 at 3000), every
    batch equal to the plain chain in one launch; off the path: B1 at the
    pid shapes bit for bit and timed, one step with the LUT layers on the
-   fused pair (B2, B3) against the plain step, B4 on the pid chains with a
-   graph replay and timed beside its bound;
+   fused pair (B2, B3) against the plain step and each layer's B2 and B3
+   launch (24->8, 24->4, 4->1 over 19,200 rows) timed beside its bound, B4
+   on the pid chains with a graph replay and timed beside its bound;
 11. the generic op-group runner and the IR tooling, on the models phases 8
    and 10 trained: the JSC-HLF program on ``engine="groups"`` bit for bit
    equal to ``DaisProgram.run`` and to the B4 engine on 8 batches each of
@@ -127,7 +132,8 @@ line:
    chain (sum stages, non-identity gathers with the zero column, in-shifts,
    CMUL and WRAP epilogues, int8/int16/int32/int64 lanes), the wide chain
    (constants and a stage's tables in global memory, tiles of fewer than
-   32 rows) and a 16->64->5 stack served through the gate, whose first
+   32 rows; timed in both computes beside its bound) and a 16->64->5
+   stack served through the gate, whose first
    stage's tables are read from global memory and second stage's staged in
    shared memory in one launch;
 14. the Pareto sweep (``launch/pareto.py``, ``examples/pareto_sweep.py``,
@@ -844,7 +850,7 @@ def phase_b2(device, report):
         n_flip, max_steps = flips(got, want, step)
         check(n_flip <= B2_FLIP_FRAC * got.numel() and max_steps <= 2.0,
               f"B2 {ci}->{co}: {n_flip} outputs differ (max {max_steps} steps)")
-        kernels = device_kernels(lambda: lut_dense_fused(x, *args))
+        kernels = graph_kernels(lambda: lut_dense_fused(x, *args))
         check(len(kernels) == 1, f"B2 {ci}->{co}: {len(kernels)} device kernels a call")
         check(b2_graph_replay(lut_dense_fused, x, args),
               f"B2 {ci}->{co}: a CUDA-graph replay differs from the eager call")
@@ -1020,17 +1026,48 @@ def graph_kernels(fn) -> list:
     """Mangled names of the kernel nodes of one call of ``fn`` captured in a
     CUDA graph, read from the graph's DOT dump (``cudaGraphDebugDotPrint``)."""
     import torch
-    from repro_torch.kernels import build as kbuild
 
-    path = kbuild.BUILD_DIR / "device_kernels.dot"
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     graph.enable_debug_mode()
     with torch.cuda.graph(graph):
         fn()
+    return dumped_kernel_names(graph)
+
+
+def dumped_kernel_names(graph) -> list:
+    """The kernel nodes of a CUDA graph kept for its debug dump."""
+    from repro_torch.kernels import build as kbuild
+
+    path = kbuild.BUILD_DIR / "device_kernels.dot"
     graph.debug_dump(str(path))
     with open(path) as fh:
         return dot_kernel_names(fh.read())
+
+
+class kept_graphs:
+    """Context manager: every ``torch.cuda.CUDAGraph`` made inside it keeps
+    its graph in debug mode, so the graph that is replayed can be dumped
+    (``dumped_kernel_names``); yields the list of the graphs made."""
+
+    def __enter__(self):
+        import torch
+
+        self.real, self.made = torch.cuda.CUDAGraph, []
+
+        def make(*_args, **_kwargs):
+            graph = self.real(keep_graph=True)
+            graph.enable_debug_mode()
+            self.made.append(graph)
+            return graph
+
+        torch.cuda.CUDAGraph = make
+        return self.made
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.CUDAGraph = self.real
 
 
 def dot_kernel_names(dot: str) -> list:
@@ -1186,19 +1223,14 @@ def phase_b3(device, report):
         x, args, g = b3_args(layer, rng, JSC_BATCH, device)
         rel = b3_check(f"{ci}->{co}", lut_dense_bwd_fused, x, args, g)
         worst = max(B3_NAMES, key=rel.get)
-        kern = device_kernels(lambda: lut_dense_bwd_fused(x, *args, g))
+        kern = graph_kernels(lambda: lut_dense_bwd_fused(x, *args, g))
         check(len(kern) == 1, f"B3 {ci}->{co}: {len(kern)} device kernels a call: {kern}")
         # the forward it recomputes: B2 on the same inputs against its plain version
         n_flip, _ = flips(lut_dense_fused(x, *args), lut_dense_ref(x, *args),
                           torch.exp2(-args[6].max(dim=0).values))
         ms = cuda_ms(lambda: lut_dense_bwd_fused(x, *args, g), iters=50)
         plain_ms = cuda_ms(lambda: lut_dense_bwd_ref(x, *args, g), iters=5, warmup=1)
-        n_bytes = 4 * (2 * x.numel() + g.numel() + 2 * sum(a.numel() for a in args[:4])
-                       + 2 * sum(a.numel() for a in args[4:]))
-        # per (b, j, o): quantizers and surrogates ~30 ops; per hidden unit
-        # ~16 (forward mul, add, tanh as one, mul, add; backward 11)
-        n_ops = JSC_BATCH * ci * co * (16 * HIDDEN + 30)
-        b_ms, b_by = bound(n_bytes, n_ops)
+        b_ms, b_by = b3_bound(x, args, g)
         print(f"[B3] {ci}->{co} H={HIDDEN} B={JSC_BATCH}, pruned cells: all eight "
               f"gradients within {B3_REL} of the plain version (worst {worst} "
               f"{rel[worst]:.3g}; max|err| {rel['max_abs']:.3g}); dx off by "
@@ -1221,6 +1253,19 @@ def phase_b3(device, report):
                                "bound_by": b_by, "library_ms": None,
                                "ms_16_20": rows[0][1], "bound_ms_16_20": rows[0][3],
                                "kernels_per_call": 1}
+
+
+def b3_bound(x, args, g):
+    """B3's bound: its inputs read and its gradients written once (every
+    input has a gradient of its size but ``g``), or its operations at the
+    FP32 rate."""
+    n_bytes = 4 * (2 * x.numel() + g.numel() + 2 * sum(a.numel() for a in args[:4])
+                   + 2 * sum(a.numel() for a in args[4:]))
+    batch, ci = x.shape
+    hidden, co = args[0].shape[1:]
+    # per (b, j, o): quantizers and surrogates ~30 ops; per hidden unit
+    # ~16 (forward mul, add, tanh as one, mul, add; backward 11)
+    return bound(n_bytes, batch * ci * co * (16 * hidden + 30))
 
 
 def b3_graph_replay(fn, x, args, g) -> bool:
@@ -1268,7 +1313,7 @@ def phase_c10(device):
         x, args, g = b3_args(layer, rng, JSC_BATCH, device)
         rel = b3_check(f"20->5 H={hidden}", lut_dense_bwd_fused, x, args, g)
         worst = max(B3_NAMES, key=rel.get)
-        kern = device_kernels(lambda: lut_dense_bwd_fused(x, *args, g))
+        kern = graph_kernels(lambda: lut_dense_bwd_fused(x, *args, g))
         check(len(kern) == 1, f"B3 H={hidden}: {len(kern)} device kernels a call: {kern}")
         replay = hidden == C10_TRAIN_HIDDEN
         if replay:
@@ -1487,7 +1532,7 @@ def phase_b4(device, prog, chain, xs, packed, max_err, report):
     for b in SERVE_BATCHES:
         check(b4_graph_replay(chain, xs[b]),
               f"B4: a CUDA-graph replay differs from the eager call at B={b}")
-    kern = device_kernels(lambda: run_chain(chain, xs[JSC_BATCH]))
+    kern = graph_kernels(lambda: run_chain(chain, xs[JSC_BATCH]))
     check(len(kern) == 1, f"B4: {len(kern)} device kernels a call: {kern}")
     print(f"[B4] JSC-HLF chain: bit for bit equal to the plain chain at B in "
           f"{list(B4_BATCHES)}, two launches alike; graph replay equal at B in "
@@ -1782,12 +1827,20 @@ def trace_stats(prof, window_ms, n_steps, name="train_trace.json"):
     """Device busy time of ``n_steps`` profiled steps from the chrome trace,
     per step: busy ms, ms between the window's events, the idle share of the
     window, device kernels (with copies and fills), B1-B3's ms and device
-    kernels, and the kernels that took the most device time; None when the
-    trace holds no device activity."""
+    kernels, and the kernels that took the most device time; and the
+    window's kernel events in all (``events``), less CUDA's own copy
+    kernels (``memcpy32_post`` and the like: a graph's copy nodes, which a
+    profile may record as kernels), so that they compare with a graph's
+    kernel nodes; None when the trace holds no device activity."""
     from repro_torch.kernels import build as kbuild
 
     path = kbuild.BUILD_DIR / name
     prof.export_chrome_trace(str(path))
+    return trace_file_stats(path, window_ms, n_steps)
+
+
+def trace_file_stats(path, window_ms, n_steps):
+    """``trace_stats`` of a chrome trace already exported to ``path``."""
     with open(path) as fh:
         trace = json.load(fh).get("traceEvents", [])
     kern = [e for e in trace if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
@@ -1801,8 +1854,10 @@ def trace_stats(prof, window_ms, n_steps, name="train_trace.json"):
     marks = sum(KERNEL_MARKS.values(), ())
     mine = sum(v for k, v in by_name.items() if any(t in k for t in marks))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    counts = kernel_counts([e["name"] for e in kern if e.get("cat") == "kernel"])
-    return {"busy": busy / n_steps, "window": window_ms / n_steps,
+    names = [e["name"] for e in kern
+             if e.get("cat") == "kernel" and not e["name"].startswith("memcpy")]
+    counts = kernel_counts(names)
+    return {"busy": busy / n_steps, "window": window_ms / n_steps, "events": len(names),
             "idle": 1 - busy / window_ms, "kernels": len(kern) / n_steps,
             "port_ms": mine / n_steps, "port_share": mine / busy,
             "counts": {k: v / n_steps for k, v in counts.items()},
@@ -2008,36 +2063,77 @@ def phase_loop(device):
     serve_trained(device, graph_layers, data, "[loop]")
 
 
-def profile_window(fn, n_steps, name):
+def profile_window(fn, n_steps, name, nodes=None):
     """``trace_stats`` of one call of ``fn`` (``n_steps`` train steps) under
-    torch.profiler, CUDA events around it, and the launch counts it added;
-    a profile that records no device kernel is taken again (PERF.md §7)."""
+    torch.profiler, CUDA events around it, and the launches it counted a
+    step (``launches``).  The profiler takes one warm-up call of ``fn``
+    before the call it records, as ``profile_kernels`` does: a profile that
+    starts on the call it traces drops its first kernel events.  The
+    profile gives times only, and a profile has been seen to drop kernel
+    events (PERF.md section 7): one whose B1-B3 events a step differ from
+    the launches counted, or whose kernel events differ from ``nodes`` (the
+    kernel nodes of the call's CUDA graph), is taken again, up to
+    ``PROFILE_TRIES`` of them.  When none is complete the shortfall goes to
+    stderr and the last profile's times are kept (NaN when none recorded a
+    device kernel): a short profile never ends the run."""
     import torch
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import ops
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    path = kbuild.BUILD_DIR / name
+    last = None
     for _ in range(PROFILE_TRIES):
+        path.unlink(missing_ok=True)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
-        before = ops.launch_counts()
-        with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.profile(
+                activities=activities,
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+                on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = ops.launch_counts()
             e0.record()
             fn()
             e1.record()
             torch.cuda.synchronize()
-        after = ops.launch_counts()
-        st = trace_stats(prof, e0.elapsed_time(e1), n_steps, name)
-        if st is not None:
-            st["launches"] = {k: (after[k] - before[k]) / n_steps for k in KERNEL_MARKS}
+            after = ops.launch_counts()
+            prof.step()
+        launches = {k: (after[k] - before[k]) / n_steps for k in KERNEL_MARKS}
+        st = (trace_file_stats(path, e0.elapsed_time(e1), n_steps) if path.exists()
+              else None)
+        if st is None:
+            print(f"[profile] {name}: no device kernel in the profile", file=sys.stderr)
+            continue
+        st["launches"] = launches
+        short = []
+        if st["counts"] != launches:
+            short.append(f"B1-B3 events a step {st['counts']} against {launches} launches")
+        if nodes is not None and st["events"] != nodes:
+            short.append(f"{st['events']} kernel events of the graph's {nodes} kernel nodes")
+        if not short:
             return st
-    raise SmokeError(f"{name}: no device kernel in {PROFILE_TRIES} profiles")
+        print(f"[profile] {name}: " + "; ".join(short), file=sys.stderr)
+        last = st
+    if last is None:
+        nan = float("nan")
+        last = {"busy": nan, "window": nan, "events": 0, "idle": nan, "kernels": nan,
+                "port_ms": nan, "port_share": nan, "counts": {}, "top": [],
+                "launches": launches}
+    print(f"[profile] {name}: no complete profile in {PROFILE_TRIES}; its times are the "
+          f"last one's", file=sys.stderr)
+    return last
 
 
 def loop_profiles(device, hp, data, layers0):
     """Profiles of the three modes on copies of the start: 5 per-step steps,
     one eager chunk of 8, one graph replay of 8 and of 40 (after the chunk
-    that captured it).  Each replayed step must run B1 twice, B2 and B3 once
-    on the device, as many as the launch counters add."""
+    that captured it).  Each replayed step must hold B1 twice, B2 and B3 once
+    among the kernel nodes of the graph that ``make_chunked_step`` captured
+    (dumped), and count as many launches; neither source drops events, and
+    the profiles give the times (``profile_window``)."""
     import torch
     from repro_torch.data.pipeline import stack_batches
     from repro_torch.train.loop import make_chunked_step
@@ -2055,6 +2151,7 @@ def loop_profiles(device, hp, data, layers0):
             opt, _ = step_fn(opt, train_batch(data, s))
 
     out[("step", None)] = profile_window(steps, 5, "loop_step.json")
+    want = {n: float(c) for n, c in PER_STEP.items() if n in KERNEL_MARKS}
     for mode, k in (("eager", LOOP_CHUNKS[0]), ("graph", LOOP_CHUNKS[0]),
                     ("graph", LOOP_CHUNKS[1])):
         step_fn, init_fn = make_lut_train_step([copy.deepcopy(l) for l in layers0], hp)
@@ -2066,13 +2163,20 @@ def loop_profiles(device, hp, data, layers0):
         def call():
             state["opt"], _ = chunk_fn(state["opt"], batches)
 
-        call()                                   # eager: warm; graph: capture + replay
-        st = profile_window(call, k, f"loop_{mode}_{k}.json")
-        if mode == "graph":
-            want = {n: float(c) for n, c in PER_STEP.items() if n in KERNEL_MARKS}
-            check(st["counts"] == want and st["launches"] == want,
-                  f"loop: a replayed step of {k} ran {st['counts']} device kernels and "
-                  f"counted {st['launches']} launches, not {want}")
+        if mode == "eager":
+            call()                               # warm
+            out[(mode, k)] = profile_window(call, k, f"loop_{mode}_{k}.json")
+            continue
+        with kept_graphs() as made:
+            call()                               # capture + replay
+        check(len(made) == 1, f"loop: the first chunk of {k} captured {len(made)} graphs")
+        names = dumped_kernel_names(made[0])
+        nodes = {n: c / k for n, c in kernel_counts(names).items()}
+        st = profile_window(call, k, f"loop_{mode}_{k}.json", nodes=len(names))
+        check(nodes == want and st["launches"] == want,
+              f"loop: a replayed step of {k} holds {nodes} B1-B3 kernel nodes in its graph "
+              f"and counted {st['launches']} launches, not {want}")
+        st["nodes"] = len(names) / k
         out[(mode, k)] = st
     return out
 
@@ -2117,6 +2221,8 @@ def loop_timings(device, tag=""):
                 + ", ".join(f"{k}: {spread(v, '{:.1f}')}" for k, v in peaks.items()))
         if m[0] == "graph":
             caps = {k: [r["capture_ms"][k] for r in runs] for k in runs[0]["capture_ms"]}
+            line += (f"; kernel nodes of its graph {st['nodes']:.1f}/step, "
+                     f"{st['events']} kernel events profiled")
             line += "; capture ms per k (warm-up step included) " + ", ".join(
                 f"{k}: {spread(v, '{:.1f}')}" for k, v in caps.items())
         print(line)
@@ -2506,11 +2612,17 @@ def phase_pid_b1(device, report):
         "pid_sat_element_bound_ms": bw_ms})
 
 
-def phase_pid_fused(device, layers, data):
+def phase_pid_fused(device, layers, data, report):
     """One pid step with the LUT layers on the fused pair (B2 forward, B3
     backward at 24->8, 24->4 and 4->1, H = 8, 19,200 rows) against the same
     step through the plain versions: a check of the conv layers' fused
-    route, not the example's path."""
+    route, not the example's path.  Then each layer's B2 and B3 launch of one
+    more such step, recorded at the wrappers, timed beside its bound and its
+    plain version."""
+    from repro_torch.examples.pid_hybrid import pid_loss_and_grads
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import lut_dense_bwd_ref, lut_dense_ref
+
     wf, cnt = pid_batch(data, 1)
     fresh = [copy.deepcopy(layer) for layer in layers]
     _cpu, n_flips, worst, got = compare_pid_step_to_plain(fresh, wf, cnt, fused=True)
@@ -2519,6 +2631,37 @@ def phase_pid_fused(device, layers, data):
           f"({PID_BATCH * PID_WF_LEN // 20} rows): launches {got}; loss, MSE, EBOPs and "
           f"every gradient agree with the plain step (CPU) within tolerance (worst "
           f"{worst:.3f} of it; {n_flips} cell codes flip between the two)")
+    calls = {"lut_dense": [], "lut_dense_bwd": []}
+    fwd, bwd = ops.lut_dense_fused, ops.lut_dense_bwd_fused
+
+    def rec(name, fn):
+        def call(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return call
+
+    ops.lut_dense_fused, ops.lut_dense_bwd_fused = rec("lut_dense", fwd), rec("lut_dense_bwd", bwd)
+    try:
+        pid_loss_and_grads(fresh, wf, cnt, fused=True)
+    finally:
+        ops.lut_dense_fused, ops.lut_dense_bwd_fused = fwd, bwd
+    check(len(calls["lut_dense"]) == len(calls["lut_dense_bwd"]) == PID_FUSED_STEP["lut_dense"],
+          f"fused pid step: recorded {({k: len(v) for k, v in calls.items()})} calls")
+    for name, fn, plain in (("lut_dense", fwd, lut_dense_ref),
+                            ("lut_dense_bwd", bwd, lut_dense_bwd_ref)):
+        for args in calls[name]:
+            x = args[0]
+            ci, (hidden, co) = x.shape[1], args[1].shape[1:]
+            ms = cuda_ms(lambda: fn(*args), iters=50)
+            plain_ms = cuda_ms(lambda: plain(*args), iters=5, warmup=1)
+            b_ms, b_by = (b2_bound(x, args[1:], x.shape[0] * co) if name == "lut_dense"
+                          else b3_bound(x, args[1:-1], args[-1]))
+            kernel = "B2" if name == "lut_dense" else "B3"
+            print(f"[pid-fused] {kernel} {ci}->{co} H={hidden} B={x.shape[0]}: kernel "
+                  f"{ms:.5f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+            tag = f"pid_{ci}_{co}"
+            report[name].update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
+                                 f"{tag}_bound_ms": b_ms})
 
 
 def phase_pid_b4(device, served, report):
@@ -3184,11 +3327,12 @@ def wide_chain(rng, dtype):
     return PackedStages([st1, st2], out_cols=np.asarray([2, 0, 1], np.int64), n_cols0=n_in)
 
 
-def phase_synthetic(device):
+def phase_synthetic(device, report):
     """B4 on what JSC-HLF does not cover, bit for bit against its plain
     version: the seeded synthetic chain, the wide chain (constants and one
     stage's tables in global memory, tiles of fewer than 32 rows in int64),
-    in int32 and int64 compute; and a 16->64->5 stack served through the
+    in int32 and int64 compute, the wide chain timed in both beside its
+    bound and its plain version; and a 16->64->5 stack served through the
     gate, whose first stage's tables read global memory and second stage's
     shared memory in one launch."""
     import torch
@@ -3212,9 +3356,19 @@ def phase_synthetic(device):
                   f"B4 != plain on the {make.__name__} {dtype}")
             lanes = sorted({str(st.table.dtype) for st in packed.stages
                             if st.table is not None})
+            timed = ""
+            if make is wide_chain:
+                ms = cuda_ms(lambda: run_chain(chain, x), iters=50)
+                plain_ms = cuda_ms(lambda: run_chain_plain(chain, x), iters=5)
+                b_ms, b_by = b4_bound(chain, packed, b)
+                timed = (f"; kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
+                         f"{b_ms:.5f} ms ({b_by})")
+                tag = f"wide_{str(dtype).split('.')[-1]}"
+                report["lut_serve"].update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
+                                            f"{tag}_bound_ms": b_ms})
             print(f"[synthetic] {make.__name__} {dtype} compute, lanes {lanes}, B={b}: "
                   f"{len(packed.stages)} stages bit-exact vs the plain chain, two launches "
-                  f"alike; plan: {b4_plan_text(chain, (b,))}")
+                  f"alike; plan: {b4_plan_text(chain, (b,))}{timed}")
     layers = build_lut_stack([16, 64, 5], HIDDEN, device=device,
                              generator=torch.Generator().manual_seed(SEED + 13))
     prog = compile_sequential(layers, IN_F, IN_I)
@@ -5711,7 +5865,7 @@ def main() -> int:
         pid = phase_pid_run(device, pid_layers, pid_data, pid_cpu)
         launches["pid"] = ops.launch_counts()
         phase_pid_b1(device, report)
-        phase_pid_fused(device, pid_layers, pid_data)
+        phase_pid_fused(device, pid_layers, pid_data, report)
         phase_pid_b4(device, pid["served"], report)
         ops.reset_launch_counts()                      # path 5: generic runner, IR tooling
         tool_engines, launches["tooling"] = phase_tooling(device, train_state[0], pid_layers)
@@ -5719,7 +5873,7 @@ def main() -> int:
         ops.reset_launch_counts()                      # path 6: the serving stack
         stack, launches["stack"] = phase_stack(device, train_state[0], pid_layers)
         stack_timings(stack, report)
-        phase_synthetic(device)
+        phase_synthetic(device, report)
         ops.reset_launch_counts()                      # path 7: the Pareto sweep
         pareto_run, launches["pareto"] = phase_pareto(device)
         for path, names in paths.items():

@@ -43,10 +43,11 @@ class LayerTables:
 
     Pruned cells (``m <= 0``) have a single entry addressed with ``idx = 0``
     (``entry_sizes`` reports size 1 for them) and emit code 0.  This is the
-    single definition of the indexing scheme; the DAIS
-    interpreter's ``LLUT`` op (``core/dais.py``) and the serving engine's
-    batched gathers (``kernels/lut_serve.py``, ``csrc/lut_serve.cu``) all
-    implement exactly this contract.
+    single definition of the indexing scheme; :meth:`lookup_codes`, the DAIS
+    interpreter's ``LLUT`` op (``core/dais.py``), the Verilog case functions
+    (``core/rtl.py``) and the serving engine's batched gathers
+    (``kernels/lut_serve.py``, ``csrc/lut_serve.cu``) all implement exactly
+    this contract.
     """
 
     f_in: np.ndarray      # (C_in, C_out) int32 — [j, i] like every grid below
@@ -78,6 +79,32 @@ class LayerTables:
         """
         return np.where(self.in_width > 0,
                         2 ** np.maximum(self.in_width, 0), 1).astype(np.int64)
+
+    # ------------------------------------------------------------------ use
+    def lookup_codes(self, x_codes: np.ndarray, x_f: np.ndarray) -> np.ndarray:
+        """Bit-exact layer evaluation on integer input codes, in numpy.
+
+        ``x_codes``: (..., C_in) int64 codes on a grid with fractional bits
+        ``x_f`` (scalar or (C_in,), broadcast over output channels).  Returns
+        output codes (..., C_out) on the *common* output grid with fractional
+        bits ``self.common_f_out()``.
+        """
+        ci = self.c_in
+        xf = np.broadcast_to(np.asarray(x_f, np.int64), (ci,))
+        # requantize input j to cell (j, i)'s grid: f_in[j, i] - x_f[j] bits
+        shift = self.f_in - xf[:, None]                     # (ci, co)
+        x = x_codes[..., :, None].astype(np.float64)        # (..., ci, 1)
+        scaled = np.round(x * np.exp2(shift))               # (..., ci, co)
+        idx = np.mod(scaled, self.entry_sizes()).astype(np.int64)  # the WRAP contract
+        out = np.take_along_axis(
+            np.broadcast_to(self.codes, x_codes.shape[:-1] + self.codes.shape),
+            idx[..., None], axis=-1)[..., 0]                # (..., ci, co)
+        # align heterogeneous per-cell output grids to the common grid; F is
+        # the max over LIVE cells, so clamp the (value-irrelevant, codes==0)
+        # shift of pruned cells whose f_out may exceed it
+        F = self.common_f_out()
+        out = out * (2 ** np.maximum(F - self.f_out, 0).astype(np.int64))
+        return out.sum(axis=-2)                             # Σ over C_in
 
     def common_f_out(self) -> int:
         live = (self.in_width > 0) & (self.out_width > 0)

@@ -153,6 +153,7 @@ class ServeEngine:
     device: torch.device
     path: str                   # "pallas" | "fused" | "generic"
     fuse_reason: str            # downgrade reason(s); "" when preferred ran
+    input_f: List[int]
     output_f: List[int]
     _runner: Callable
     n_launches: int = 0         # launches per batch (pallas: 1; fused /
@@ -183,6 +184,16 @@ class ServeEngine:
             return DTensor.from_local(out, self.mesh, xd.placements,
                                       run_check=False).full_tensor()
         return self._runner(x.contiguous())
+
+    def run_float(self, x) -> np.ndarray:
+        """Float inputs -> float outputs, as ``DaisProgram.run_float``: each
+        input rounded onto its ``input_f`` grid, the codes through
+        :meth:`run` (on a mesh, its batch sharding), the output codes scaled
+        by ``2**-output_f``; a numpy float64 array."""
+        x = np.asarray(x, np.float64)
+        codes = np.round(x * np.exp2(np.asarray(self.input_f, np.float64)))
+        out = self.run(codes.astype(np.int64)).cpu().numpy().astype(np.float64)
+        return out * np.exp2(-np.asarray(self.output_f, np.float64))
 
     def clone(self) -> "ServeEngine":
         """A replica-local handle sharing this engine's compiled runner.
@@ -298,7 +309,8 @@ def compile_program(prog: DaisProgram, *, mesh=None, device="cuda",
     return ServeEngine(
         n_inputs=len(prog.input_f), n_outputs=len(prog.outputs),
         n_groups=n_groups, dtype=dtype, device=device, path=path,
-        fuse_reason="; ".join(downgrades), output_f=list(prog.output_f),
+        fuse_reason="; ".join(downgrades), input_f=list(prog.input_f),
+        output_f=list(prog.output_f),
         _runner=run, n_launches=n_launches, packed_table_bytes=packed_bytes, mesh=mesh)
 
 
@@ -509,6 +521,12 @@ class FusedStages:
 
     def n_stages(self) -> int:
         return len(self.stages)
+
+    def n_table_entries(self) -> int:
+        """Stored truth-table entries across the "lut" stages; the dead-cell
+        pass (``core/opt.py``) shrinks it when it slices pruned rows out of
+        the shared tables."""
+        return int(sum(st.table.size for st in self.stages if st.table is not None))
 
 
 # ---------------------------------------------------------------- composer

@@ -33,7 +33,11 @@ def mesh_over(device_type: str, shape, names):
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
     """The production mesh over the current process group, whose world must
-    hold 512 (``multi_pod``) or 256 ranks (the dry-run's fake group)."""
+    hold 512 (``multi_pod``) or 256 ranks (the dry-run's fake group).
+
+    Its ``cpu`` default is no entry point that computes: the dry-run builds
+    its models on ``meta`` tensors and runs nothing on the mesh's devices,
+    so the type only names the fake group's backend."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return mesh_over(device_type, shape, axes)

@@ -154,18 +154,32 @@ def ce_loss(x: Tensor, w: Tensor, labels: Tensor, remat: bool, mesh=None) -> Ten
     return total / (b * s)
 
 
+def model_device(device=None, mesh=None) -> torch.device:
+    """Where a zoo model is built: ``device``, else the device type of
+    ``mesh``, else the card.  Asked for ``cuda`` with no card it raises;
+    nothing falls back to the CPU, which a caller asks for by name."""
+    if device is None:
+        device = mesh.device_type if mesh is not None else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build the model on the CPU")
+    return device
+
+
 class ZooModel(nn.Module):
     """What the zoo's model classes share: the parameters of
     ``defs_of(cfg)`` registered by reference path (``blocks/wq``) and drawn
-    from ``generator`` on ``device`` (``nn/params.py``'s distributions),
-    the compute dtype, and the stacked parameters by prefix."""
+    from ``generator`` on ``model_device(device, mesh)`` (``nn/params.py``'s
+    distributions), the compute dtype, and the stacked parameters by
+    prefix."""
 
-    def __init__(self, cfg: ArchConfig, mesh=None, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, mesh=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
         self.compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        device = model_device(device, mesh)
         for path, d in flat_defs(self.defs()).items():
             self.register_parameter(path, nn.Parameter(init_tensor(d, generator, device)))
 
@@ -242,9 +256,9 @@ class ZooModel(nn.Module):
 
 class DecoderLM(ZooModel):
     """The decoder LM of ``cfg`` with parameters drawn from ``generator``
-    (``nn/params.py``'s distributions) on ``device``."""
+    (``nn/params.py``'s distributions) on ``device`` (``model_device``)."""
 
-    def __init__(self, cfg: ArchConfig, mesh=None, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, mesh=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg, mesh, device=device, generator=generator)
         self.attn_cfg = attn.AttnCfg(

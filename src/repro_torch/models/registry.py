@@ -32,10 +32,13 @@ def model_class(cfg: ArchConfig):
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def build_model(cfg: ArchConfig, mesh=None, *, device="cpu",
+def build_model(cfg: ArchConfig, mesh=None, *, device=None,
                 generator: Optional[torch.Generator] = None):
     """The model of ``cfg`` on ``device``, its parameters drawn from
-    ``generator`` (on ``device="meta"``: shapes only, nothing drawn).  With a
-    ``mesh`` (a ``DeviceMesh``) the model runs the reference's sharding
-    constraints; ``train/steps.py`` places its parameters on the mesh."""
+    ``generator`` (on ``device="meta"``: shapes only, nothing drawn).  With
+    no ``device`` it is built on the card, or on the device type of ``mesh``
+    when one is given; with no card that raises, so the CPU is only ever
+    asked for by name (``device="cpu"``).  With a ``mesh`` (a
+    ``DeviceMesh``) the model runs the reference's sharding constraints;
+    ``train/steps.py`` places its parameters on the mesh."""
     return model_class(cfg)(cfg, mesh, device=device, generator=generator)

@@ -50,7 +50,7 @@ MAX_DEC_POS = 32768 + 8  # covers the decode_32k cell
 class WhisperEncDec(ZooModel):
     max_positions = MAX_DEC_POS
 
-    def __init__(self, cfg: ArchConfig, mesh=None, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, mesh=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg, mesh, device=device, generator=generator)
         base = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,

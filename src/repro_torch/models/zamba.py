@@ -46,7 +46,7 @@ Tensor = torch.Tensor
 
 
 class ZambaHybrid(ZooModel):
-    def __init__(self, cfg: ArchConfig, mesh=None, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, mesh=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__(cfg, mesh, device=device, generator=generator)
         self.attn_cfg = attn.AttnCfg(

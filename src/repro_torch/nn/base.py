@@ -21,7 +21,7 @@ class Aux:
     updates: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def zero(device="cpu") -> "Aux":
+    def zero(device) -> "Aux":
         z = torch.zeros((), dtype=torch.float32, device=device)
         return Aux(ebops=z, aux_loss=z.clone())
 

@@ -73,8 +73,7 @@ def init_tensor(d: PDef, generator: Optional[torch.Generator], device) -> torch.
     return t.to(device)
 
 
-def init_params(defs, generator: Optional[torch.Generator] = None,
-                device="cpu") -> Dict[str, Any]:
+def init_params(defs, generator: Optional[torch.Generator], device) -> Dict[str, Any]:
     """Materialise ``defs`` (a nested dict of PDefs) into the same nesting of
     tensors on ``device``."""
     if isinstance(defs, PDef):

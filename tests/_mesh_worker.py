@@ -80,9 +80,10 @@ def case_train(arch, shape, names, dump=None, **over):
     cfg = dataclasses.replace(get_smoke(arch), dtype="float32", **over)
     mesh = _mesh(shape, names)
     hp = steps.TrainHParams(beta=BetaSchedule(beta_init=1e-7, beta_final=None))
-    ref = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    ref = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     mm = build_model(cfg, mesh, generator=torch.Generator().manual_seed(0))
-    ref0 = build_model(cfg, generator=torch.Generator().manual_seed(0)) if dump else None
+    ref0 = (build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+            if dump else None)
     nb = lm_batch(3, 0, 4, 32, cfg.vocab)
     batch = {k: torch.as_tensor(v) for k, v in nb.items()}
     zero = torch.zeros((), dtype=torch.int32)
@@ -136,7 +137,7 @@ def case_serve_lm(arch, shape, names, **over):
 
     cfg = dataclasses.replace(get_smoke(arch), dtype="float32", **over)
     mesh = _mesh(shape, names)
-    ref = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    ref = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     mm = build_model(cfg, mesh, generator=torch.Generator().manual_seed(0))
     toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (4, 24)),
                            dtype=torch.int32)
@@ -208,6 +209,11 @@ def case_serve():
     lo, hi = input_code_bounds(prog)
     codes = np.random.default_rng(0).integers(lo, hi + 1, (64, len(prog.input_f)))
     mesh = _mesh((dist.get_world_size(),), ("data",))
+    # floats off the input grid, some on its ties (rounded half to even,
+    # staying in range): run_float rounds them onto it
+    off = np.random.default_rng(1).choice([-0.5, -0.3, 0.0, 0.25, 0.45], codes.shape)
+    off = np.where((off == -0.5) & (codes == lo), 0.0, off)
+    xf = (codes + off) * np.exp2(-np.asarray(prog.input_f, np.float64))
     out = {}
     for name in ("pallas", "fused", "groups"):
         plain = compile_program(prog, device="cpu", engine=name).run(codes)
@@ -215,7 +221,8 @@ def case_serve():
         got = meshed.run(codes)
         out[name] = {"equal": bool(torch.equal(plain, got)), "mesh": meshed.mesh is mesh,
                      "path": meshed.path,
-                     "interp": bool(np.array_equal(got.numpy(), prog.run(codes)))}
+                     "interp": bool(np.array_equal(got.numpy(), prog.run(codes))),
+                     "float": bool(np.array_equal(meshed.run_float(xf), prog.run_float(xf)))}
     return out
 
 

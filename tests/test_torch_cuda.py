@@ -708,6 +708,39 @@ def test_generic_runner_on_card_matches_interpreter(device, b):
     np.testing.assert_array_equal(out.cpu().numpy().astype(np.int64), prog.run(codes))
 
 
+@pytest.mark.parametrize("engine", ["pallas", "fused", "groups"])
+def test_run_float_on_card_equals_the_interpreter(device, engine):
+    """``ServeEngine.run_float`` on the card: floats off the input grid and
+    on its ties, rounded onto it, served, scaled back; equal to
+    ``DaisProgram.run_float``, through one B4 launch on the pallas path."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_serve import compile_program, input_code_bounds
+
+    prog = _jsc_program(device)
+    eng = compile_program(prog, device=device, engine=engine)
+    lo, _hi = input_code_bounds(prog)
+    codes = _in_range(prog, 1024, seed=5)
+    off = np.random.default_rng(6).choice([-0.5, -0.3, 0.0, 0.25, 0.45], codes.shape)
+    off = np.where((off == -0.5) & (codes == lo), 0.0, off)
+    x = (codes + off) * np.exp2(-np.asarray(prog.input_f, np.float64))
+    before = ops.launch_counts()["lut_serve"]
+    got = eng.run_float(x)
+    assert ops.launch_counts()["lut_serve"] - before == (1 if engine == "pallas" else 0)
+    np.testing.assert_array_equal(got, prog.run_float(x))
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "phi35_moe", "internvl2_26b", "zamba2_12b",
+                                  "rwkv6_16b", "whisper_base"])
+def test_build_model_defaults_to_the_card(device, arch):
+    """With no ``device`` each family's model is built on the card."""
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_smoke(arch), generator=torch.Generator().manual_seed(0))
+    assert model.device == torch.device("cuda", 0)
+    assert {p.device for p in model.parameters()} == {torch.device("cuda", 0)}
+
+
 def test_one_window_pid_serves_generic_on_card(device):
     from repro_torch.core.lower import lower
     from repro_torch.models.pid import build_pid_graph, build_pid_layers

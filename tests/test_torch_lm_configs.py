@@ -69,10 +69,11 @@ def test_build_model_raises_for_the_next_slice(arch, cls):
     """The hybrid, SSM and encoder-decoder families, which once raised here
     for the next slice, build their own class (the name is kept from then);
     an unknown family still raises, and no family falls back to another."""
-    model = build_model(tbase.get_smoke(arch))
+    model = build_model(tbase.get_smoke(arch), device="cpu")
     assert type(model).__name__ == cls and model.cfg.family == tbase.get_smoke(arch).family
     with pytest.raises(ValueError, match="unknown family"):
-        build_model(dataclasses.replace(tbase.get_smoke("olmo_1b"), family="cnn"))
+        build_model(dataclasses.replace(tbase.get_smoke("olmo_1b"), family="cnn"),
+                    device="cpu")
 
 
 # --------------------------------------------------------------------- data

@@ -39,7 +39,7 @@ def pair(arch, dtype="bfloat16", seed=0, **over):
     tcfg = dataclasses.replace(tbase.get_smoke(arch), dtype=dtype, **over)
     jm = jbuild(jcfg)
     params = jinit(jm.defs(), jax.random.PRNGKey(seed))
-    tm = build_model(tcfg)
+    tm = build_model(tcfg, device="cpu")
     interop.lm_params_from_numpy(tm, jax.tree.map(np.array, params))
     return jm, params, tm
 

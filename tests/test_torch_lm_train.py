@@ -86,7 +86,8 @@ def test_models_from_one_seed_are_equal_and_init_state_is_zero():
     from repro_torch.configs.base import get_smoke
     from repro_torch.models.registry import build_model
 
-    a, b = (build_model(get_smoke("olmo_1b"), generator=torch.Generator().manual_seed(3))
+    a, b = (build_model(get_smoke("olmo_1b"), device="cpu",
+                        generator=torch.Generator().manual_seed(3))
             for _ in range(2))
     params, opt = init_state(a)
     for k, v in params.items():

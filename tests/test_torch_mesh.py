@@ -24,7 +24,8 @@ group, run once for the module).
 * prefill and decode of the smoke OLMo on ``(model=2)`` and Phi-3.5-MoE on
   ``(data=2)`` against ``mesh=None``, float32, within 1e-5 of the largest;
 * ``compile_program(mesh=)`` on 1- and 2-rank meshes, bit for bit equal to
-  ``mesh=None`` and to ``DaisProgram.run``;
+  ``mesh=None`` and to ``DaisProgram.run``, its ``run_float`` equal to
+  ``DaisProgram.run_float``;
 * ``sharding.cumsum`` on a DTensor against ``torch.cumsum``;
 * ``restore(shardings=)``: a checkpoint of a meshed model back on the mesh;
 * ``make_local_mesh("cuda")`` with no card raises.
@@ -253,7 +254,7 @@ def test_compile_program_on_a_mesh_bit_exact(world, two_ranks, tmp_path):
         r = run_cases(["serve"], 1, tmp_path / "one.json")["serve"]
     assert set(r) == {"pallas", "fused", "groups"}
     for name, got in r.items():
-        assert got["equal"] and got["interp"] and got["mesh"], (name, got)
+        assert got["equal"] and got["interp"] and got["mesh"] and got["float"], (name, got)
     assert r["groups"]["path"] == "generic"
 
 

@@ -117,7 +117,7 @@ def test_aux_helpers():
     m = merge_aux(scoped_updates("l0", a), scoped_updates("l1", b))
     assert float(m.ebops) == 5.0 and float(m.aux_loss) == 0.5
     assert m.updates == {"l0/bn_mean": 1, "l1/bn_var": 2}
-    z = Aux.zero()
+    z = Aux.zero("cpu")
     assert float(z.ebops) == 0.0 and z.ebops.dtype == torch.float32
     assert merge_aux().ebops == 0.0
 
