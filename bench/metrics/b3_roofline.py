@@ -1,0 +1,8 @@
+"""Kernel B3 (``csrc/lut_dense_bwd.cu``): its bound of one launch at the
+cell's shapes over the mean time of its recorded events, in percent."""
+
+from bench.metrics._roofline import share
+
+
+def read(run):
+    return share(run, "lut_dense_bwd", ("lut_dense_bwd_",))
