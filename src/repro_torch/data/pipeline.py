@@ -17,6 +17,13 @@ on a background prefetch thread:
 A batch is a dict of numpy arrays; a chunk is the same dict of tensors on the
 device, each with the leading axis of length k.
 
+Under a ``torch.profiler`` window (``repro_torch/tracing.py``) building a
+chunk opens the span ``repro.prefetch.build`` (on the worker thread, or in
+the consumer's on the synchronous path), with the child
+``repro.prefetch.slot_wait`` while the worker waits for a pinned buffer's
+last copy to end; the consumer's wait for the next chunk opens
+``repro.loop.prefetch_wait``.
+
 Determinism contract: ``get_batch(step)`` must be a pure function of the step
 index (plus whatever seed it closes over); the pipeline only changes *where
 and when* batches are built, never *which* batches.  The prefetcher calls
@@ -39,6 +46,8 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
 
 import numpy as np
 import torch
+
+from repro_torch import tracing
 
 
 def _stack(batches: List[dict], out: Optional[Dict[str, np.ndarray]] = None) -> dict:
@@ -72,7 +81,8 @@ class _PinnedSlot:
     def fill(self, batches: List[dict]) -> Dict[str, torch.Tensor]:
         """Stack ``batches`` into the buffers, after their last copy ended."""
         if self.copied is not None:
-            self.copied.synchronize()
+            with tracing.span("repro.prefetch.slot_wait"):
+                self.copied.synchronize()
         first = {key: np.asarray(v) for key, v in batches[0].items()}
         want = {key: ((len(batches),) + a.shape, torch.from_numpy(np.empty(0, a.dtype)).dtype)
                 for key, a in first.items()}
@@ -148,7 +158,8 @@ class HostPrefetcher:
             for n, (step, k) in enumerate(self._segments):
                 if self._stop.is_set():
                     return
-                chunk, ready = self._build(n, step, k)
+                with tracing.span("repro.prefetch.build"):
+                    chunk, ready = self._build(n, step, k)
                 if not self._put(("chunk", (step, k, chunk, ready))):
                     return
         except BaseException as exc:  # noqa: BLE001 — re-raised in the consumer
@@ -157,16 +168,24 @@ class HostPrefetcher:
             self._put(self._DONE)
 
     # ----------------------------------------------------------- consumer
-    def __iter__(self) -> Iterator[Tuple[int, int, Dict[str, torch.Tensor]]]:
+    def _get(self):
+        """The worker's next item, or None if the worker is gone without one."""
         while True:
             try:
-                kind, payload = self._q.get(timeout=0.1)
+                return self._q.get(timeout=0.1)
             except queue.Empty:
                 if not self._thread.is_alive():
                     # defensive: a worker can only vanish without a terminal
                     # item if close() raced us — stop iterating either way
-                    return
-                continue
+                    return None
+
+    def __iter__(self) -> Iterator[Tuple[int, int, Dict[str, torch.Tensor]]]:
+        while True:
+            with tracing.span("repro.loop.prefetch_wait"):
+                item = self._get()
+            if item is None:
+                return
+            kind, payload = item
             if kind == "chunk":
                 step, k, chunk, ready = payload
                 if ready is not None:
@@ -221,8 +240,10 @@ def chunk_stream(get_batch: Callable[[int], dict],
     device = _default_device(device)
     if not prefetch:
         for step, k in segments:
-            yield step, k, {key: torch.from_numpy(a).to(device)
-                            for key, a in stack_batches(get_batch, step, k).items()}
+            with tracing.span("repro.prefetch.build"):
+                chunk = {key: torch.from_numpy(a).to(device)
+                         for key, a in stack_batches(get_batch, step, k).items()}
+            yield step, k, chunk
         return
     with HostPrefetcher(get_batch, segments, depth=depth, device=device) as pf:
         yield from pf

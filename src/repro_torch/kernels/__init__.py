@@ -12,7 +12,8 @@
                        (``csrc/lut_serve.cu``).
 ``ops.py``             ``lut_dense`` (B2 forward, B3 backward as one
                        ``autograd.Function``), ``lut_dense_train``,
-                       ``fake_quant`` and the launch counters.
+                       ``fake_quant`` and the launch counters' old names
+                       (the counters live in ``repro_torch/tracing.py``).
 ``ref.py``             the plain versions the kernels are held against.
 ``build.py``           compiles ``csrc/*.cu`` (with the shared quantizer grid
                        ``csrc/fq.cuh``) with ``nvcc`` at first use.

@@ -6,11 +6,13 @@ checkout's ``build/`` directory under a name that carries a hash of the
 source, of the shared headers (``csrc/*.cuh``) and of the flags, so an
 edited source or header is rebuilt and a stale library is never loaded.  :func:`build_all` starts one ``nvcc`` per source at once.
 
-Nothing here runs at import time; this module also holds the launch
-counters, one plain integer per kernel, which each wrapper increments
-(:func:`count_launch`) where it launches its kernel and nowhere else.  Both
-the first-use build and load and the counters are safe for threads: serving
-replicas launch kernels from several host threads at once.
+Nothing is built at import time.  The launch counters, one plain integer
+per kernel that each wrapper increments where it launches its kernel and
+nowhere else, live in ``repro_torch/tracing.py``; ``LAUNCHES``,
+:func:`count_launch` and :func:`reset_launches` here are the same objects,
+with a counter for each of :data:`SOURCES`.  Both the first-use build and
+load and the counters are safe for threads: serving replicas launch kernels
+from several host threads at once.
 """
 
 from __future__ import annotations
@@ -25,33 +27,21 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
+from repro_torch.tracing import LAUNCHES, count_launch, reset_launches  # noqa: F401
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel launches since the last reset_launches(), by kernel name
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# every kernel's counter reads 0 before its first launch
+LAUNCHES.update(dict.fromkeys(SOURCES, 0))
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # held across a library's first build and load, so threads that need it at
 # once build it once and load it once
 _LOAD_LOCK = threading.Lock()
-# held across each read-modify-write of LAUNCHES
-_COUNT_LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _COUNT_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-
-
-def count_launch(name: str, n: int = 1) -> None:
-    """Add ``n`` launches of kernel ``name`` to its counter, atomically."""
-    with _COUNT_LOCK:
-        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

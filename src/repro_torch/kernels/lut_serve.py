@@ -31,18 +31,26 @@ proves every value the engine materializes fits 30 bits (the proven
 :func:`engine_width`, or the conservative ``required_width()`` when the
 analysis is unavailable or ``narrow=False``), else int64.
 :func:`verify_engine` is the bit-exactness gate against ``DaisProgram.run``.
+
+Under a ``torch.profiler`` window (``repro_torch/tracing.py``)
+:meth:`ServeEngine.run` opens the span ``repro.serve.run`` with the children
+``repro.serve.stage`` (the codes to the device, the cast, ``contiguous``)
+and ``repro.serve.launch`` (the runner), and marks the device clock
+``serve`` ``start`` before the staging and ``end`` after the runner.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.analysis import (_round_half_even, analyze_ranges,
                                        index_window)
 from repro_torch.core.dais import DaisProgram, OpGroup, _requant
@@ -171,19 +179,29 @@ class ServeEngine:
         reference's global array); on a one-rank mesh the batch runs as
         without a mesh (the reference skips its placement there too).
         """
-        x = torch.as_tensor(x_codes, device=self.device).to(self.dtype)
-        if x.dim() == 1:
-            x = x[None]
-        if self.mesh is not None and self.mesh.size() > 1:
-            from torch.distributed.tensor import DTensor
+        sharded = self.mesh is not None and self.mesh.size() > 1
+        tracing.mark("serve", "start", self.device)
+        with tracing.span("repro.serve.run"):
+            with tracing.span("repro.serve.stage"):
+                x = torch.as_tensor(x_codes, device=self.device).to(self.dtype)
+                if x.dim() == 1:
+                    x = x[None]
+                if not sharded:
+                    x = x.contiguous()
+            with tracing.span("repro.serve.launch"):
+                out = self._run_sharded(x) if sharded else self._runner(x)
+        tracing.mark("serve", "end", self.device)
+        return out
 
-            from repro_torch.parallel.sharding import shard_batch
+    def _run_sharded(self, x: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
 
-            xd = shard_batch(x, self.mesh)
-            out = self._runner(xd.to_local().contiguous())
-            return DTensor.from_local(out, self.mesh, xd.placements,
-                                      run_check=False).full_tensor()
-        return self._runner(x.contiguous())
+        from repro_torch.parallel.sharding import shard_batch
+
+        xd = shard_batch(x, self.mesh)
+        out = self._runner(xd.to_local().contiguous())
+        return DTensor.from_local(out, self.mesh, xd.placements,
+                                  run_check=False).full_tensor()
 
     def run_float(self, x) -> np.ndarray:
         """Float inputs -> float outputs, as ``DaisProgram.run_float``: each
@@ -1082,13 +1100,15 @@ def input_code_bounds(prog: DaisProgram):
 
 def verify_engine(engine: ServeEngine, prog: DaisProgram, *,
                   n_random: int = 1024, seed: int = 0,
-                  exhaustive_limit: int = 4096) -> Dict[str, int]:
+                  exhaustive_limit: int = 4096,
+                  timings: Optional[Dict[str, object]] = None) -> Dict[str, int]:
     """Assert the engine matches ``DaisProgram.run`` bit-for-bit.
 
     Checks ``n_random`` uniform random input-code vectors, plus the full
     input cross-product whenever it has at most ``exhaustive_limit`` rows.
     Raises ``AssertionError`` on the first mismatch; returns the row counts
-    checked so callers can log the gate.
+    checked so callers can log the gate.  ``timings``, if given, gets
+    ``gate_oracle_s``: the seconds spent in ``prog.run``, the numpy oracle.
     """
     lo, hi = input_code_bounds(prog)
     rng = np.random.default_rng(seed)
@@ -1100,10 +1120,15 @@ def verify_engine(engine: ServeEngine, prog: DaisProgram, *,
         grid = np.indices(tuple(int(s) for s in sizes))
         batches.append(grid.reshape(len(lo), -1).T + lo[None, :])
         n_exhaustive = batches[-1].shape[0]
+    oracle_s = 0.0
     for codes in batches:
+        t0 = time.perf_counter()
         ref = prog.run(codes)
+        oracle_s += time.perf_counter() - t0
         got = engine.run(codes).cpu().numpy().astype(np.int64)
         np.testing.assert_array_equal(
             got, ref, err_msg="serving engine != DAIS interpreter")
+    if timings is not None:
+        timings["gate_oracle_s"] = oracle_s
     return {"random": n_random, "exhaustive": n_exhaustive,
             "max_width": prog.max_width(), "n_groups": engine.n_groups}

@@ -13,20 +13,19 @@
 ``fake_quant``       kernel B1 (``kernels/fake_quant.py``).
 
 ``launch_counts`` / ``reset_launch_counts`` read and clear the per-kernel
-launch counters, so a run can show that its main path went through the
-kernels and not their plain versions.
+launch counters (``repro_torch/tracing.py``), so a run can show that its
+main path went through the kernels and not their plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 
-from repro_torch.kernels import build
 from repro_torch.kernels.fake_quant import fake_quant_fused
 from repro_torch.kernels.lut_dense import lut_dense_fused
 from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
+from repro_torch.tracing import launch_counts  # noqa: F401
+from repro_torch.tracing import reset_launches as reset_launch_counts  # noqa: F401
 
 
 class _LUTDenseFn(torch.autograd.Function):
@@ -76,12 +75,3 @@ def lut_dense_train(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, *,
 def fake_quant(x, f, i, *, signed: bool = True, overflow: str = "SAT"):
     """Fake-quant with integer-valued widths: kernel B1 on a CUDA tensor."""
     return fake_quant_fused(x, f, i, signed=signed, overflow=overflow)
-
-
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(build.LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    build.reset_launches()

@@ -172,7 +172,7 @@ def build(source: Union[DaisProgram, LoadedArtifact, str],
         else:
             t0 = time.monotonic()
             att = verify_engine(engine, prog, n_random=spec.n_random,
-                                seed=spec.seed)
+                                seed=spec.seed, timings=timings)
             timings["gate_s"] = time.monotonic() - t0
         att = _with_rtl(att, prog, engine, prog, spec, timings)
         return BuiltEngine(engine=engine, prog=prog, oracle=prog,
@@ -201,7 +201,7 @@ def build(source: Union[DaisProgram, LoadedArtifact, str],
     if spec.verify in ("full", "cached"):
         t0 = time.monotonic()
         att = verify_engine(engine, oracle, n_random=spec.n_random,
-                            seed=spec.seed)
+                            seed=spec.seed, timings=timings)
         timings["gate_s"] = time.monotonic() - t0
     att = _with_rtl(att, prog, engine, oracle, spec, timings)
     return BuiltEngine(engine=engine, prog=prog, oracle=oracle,

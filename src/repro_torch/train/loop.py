@@ -19,6 +19,13 @@ steps per call:
 * **boundary-exact planning** -- :func:`plan_chunks` never lets a chunk cross
   a checkpoint / crash / snapshot boundary.
 
+Under a ``torch.profiler`` window (``repro_torch/tracing.py``) each chunk
+opens the spans ``repro.loop.enqueue`` (the chunk's call, the interval of
+``ChunkResult.host_s``) and ``repro.loop.sync`` (the metrics transfer, which
+waits for the chunk), and marks the device clock ``loop`` ``start`` just
+before the call and ``end`` just after it returns: start to end is the
+chunk on the device, end to the next start the gap between two chunks.
+
 The port's step is stateful: ``step_fn(opt_state, batch) -> (opt_state,
 metrics)`` from ``train/steps.py::make_lut_train_step`` writes the layers'
 parameters and batch-norm stats in place.  :func:`chunked_train` and
@@ -42,8 +49,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tupl
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.data.pipeline import chunk_stream
-from repro_torch.kernels import build
 
 MODES = ("eager", "graph")
 
@@ -136,7 +143,7 @@ class _GraphChunk:
 
     The kernel wrappers count their launches at capture time, when nothing
     runs on the device; the chunk takes those counts back and adds them to
-    ``kernels.build.LAUNCHES`` on every replay instead.
+    ``tracing.LAUNCHES`` on every replay instead.
     """
 
     def __init__(self, step_fn: Callable, device: torch.device):
@@ -160,7 +167,7 @@ class _GraphChunk:
                 cap.batches[key].copy_(b)
         cap.graph.replay()
         for name, n in cap.launches.items():
-            build.count_launch(name, n)
+            tracing.count_launch(name, n)
         return self.opt_state, cap.metrics
 
     def _capture(self, k: int, batches) -> _Captured:
@@ -170,7 +177,7 @@ class _GraphChunk:
         with torch.cuda.stream(self.stream):
             self.step_fn(self.opt_state, _row(static, 0), commit=False)
         current.wait_stream(self.stream)
-        before = dict(build.LAUNCHES)
+        before = dict(tracing.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
             opt_state, rows = self.opt_state, []
@@ -179,8 +186,8 @@ class _GraphChunk:
                 rows.append(metrics)
             _copy_state(self.opt_state, opt_state)
             stacked = _stack_metrics(rows)
-        launches = {name: build.LAUNCHES[name] - before[name] for name in before}
-        build.LAUNCHES.update(before)
+        launches = {name: tracing.LAUNCHES[name] - before[name] for name in before}
+        tracing.LAUNCHES.update(before)
         return _Captured(graph, static, stacked, launches)
 
 
@@ -264,15 +271,17 @@ def chunked_train(step_fn: Callable, params, opt_state,
                                          depth=prefetch_depth, device=device):
         compiled = k not in seen_lengths
         seen_lengths.add(k)
-        t0 = time.perf_counter()
-        opt_state, metrics = chunk_fn(opt_state, batches)
-        host_s = time.perf_counter() - t0
+        tracing.mark("loop", "start", device)
+        with tracing.span("repro.loop.enqueue", timed=True) as enqueue:
+            opt_state, metrics = chunk_fn(opt_state, batches)
+        tracing.mark("loop", "end", device)
         # ONE device→host transfer per chunk; it waits for the chunk to end,
         # which is what makes dt_s a real boundary
-        values = torch.stack(list(metrics.values())).cpu().numpy()
-        dt_s = time.perf_counter() - t0
+        with tracing.span("repro.loop.sync"):
+            values = torch.stack(list(metrics.values())).cpu().numpy()
+        dt_s = (time.perf_counter_ns() - enqueue.start_ns) * 1e-9
         yield ChunkResult(step, k, params, opt_state, dict(zip(metrics, values)),
-                          dt_s, compiled, host_s)
+                          dt_s, compiled, enqueue.seconds)
 
 
 def run_chunked(step_fn: Callable, params, opt_state,
