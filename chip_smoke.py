@@ -32,10 +32,16 @@ line:
    +-127, i = -127, within ``B3_REL``; two launches bitwise equal; one
    device kernel a call (a captured graph's kernel nodes); no register
    spills at H = 8 (ptxas);
-   then B3 past its unrolled instantiations (H = 17, 24, 32 at 20->5, B =
-   16600: its generic kernel) within ``B3_REL``, a graph replay at H = 24,
-   and one fused train step of a JSC-HLF stack at H = 24 against the plain
-   step;
+   then the batch statistics' pair of train-mode batch-norm
+   (``lut_bn_stats_kernel``, ``lut_bn_stats_grad_kernel``) at the JSC-HLF
+   layer 0, 16->20, H = 8 and 20, B in 16600, 1024, 1 and 4099, against its
+   plain versions (the statistics within ``BN_STATS_REL``, the gradients
+   within ``B3_REL``), two launches bitwise equal, one device kernel each, a
+   graph replay equal to eager calls, timed beside B2 and B3 on the folded
+   layer and their bounds; then B3 past its unrolled instantiations (H =
+   17, 24, 32 at 20->5, B = 16600: its generic kernel) within ``B3_REL``, a
+   graph replay at H = 24, and one fused train step of a JSC-HLF stack at H
+   = 24 against the plain step;
 5. the serve slice, float: the 16,20,5 JSC-HLF stack from a seeded
    generator; its eval forward must equal ``DaisProgram.run_float`` of its
    own lowering exactly, and the fused forward (kernel B2) may differ from
@@ -50,8 +56,9 @@ line:
    launch plan; then timed at B = 16600 and 1024 beside its bound and plain
    version;
 8. the train slice: ``make_lut_train_step`` with ``lut_use_fused=True`` on
-   JSC-HLF data for ``TRAIN_STEPS`` steps at B=16600, each launching B1
-   twice, B2 once and B3 once; step 1 held against the same step through
+   JSC-HLF data for ``TRAIN_STEPS`` steps at B=16600, each launching the
+   batch statistics' pair once and B2 and B3 twice, and no B1
+   (``PER_STEP``); step 1 held against the same step through
    the plain versions (on the CPU, where the wrappers take them); the Adam
    step counter on the card, and beta and lr from it against the CPU's, in
    ulps; a finite, falling loss; then the trained model evaluated, lowered (eval forward ==
@@ -61,15 +68,15 @@ line:
    chunks of 8 and of 40 (a boundary at step 100, so k in {8, 4} and {40,
    20}, batches built on the host by ``get_batch`` and staged by the
    prefetcher) from one start, bit for bit equal in parameters, Adam state,
-   BN stats and every step's loss/CE/EBOPs, each chunk launching B1 x2, B2
-   and B3 once per step (a replay counting what its capture recorded); a
+   BN stats and every step's loss/CE/EBOPs, each chunk launching
+   ``PER_STEP`` a step (a replay counting what its capture recorded); a
    graph run saved by ``CheckpointStore`` at step 100 and stopped at 130,
    restored into fresh layers and run 100-200, bit for bit equal to the
    straight run; the graph-trained model lowered, gated and served through
    B4; then the modes timed in three interleaved rounds (medians and
    ranges of ms/step, host ms/step, steps/s, capture time and peak memory
    per k) and profiled once each (device busy and idle share, device
-   kernels per step); a replayed step holds B1 twice, B2 and B3 once among
+   kernels per step); a replayed step holds ``PER_STEP``'s kernels among
    the kernel nodes of the graph ``make_chunked_step`` captured and counts
    as many launches (the profile gives times only: one short of the
    graph's nodes is taken again, and never ends the run);
@@ -212,7 +219,8 @@ line:
 
 ``python3 chip_smoke.py --b1-timing``, ``--b2-timing``, ``--b3-timing`` and
 ``--b4-timing`` print only kernel B1's, B2's, B3's or B4's timings (and B2's,
-B3's or B4's registers, B2's and B3's SASS, B4's launch plan), and
+B3's or B4's registers, B2's and B3's SASS, B4's launch plan),
+``--bn-timing`` only the batch statistics' pair's checks and timings, and
 ``--loop-timing`` only the chunked loop's timings and profiles, with no
 result line, to compare two trees in one call; ``--lm`` runs only phase 15,
 ``--zoo`` only phase 16 and ``--mesh`` only phase 17 (after the build),
@@ -1289,6 +1297,172 @@ def b3_graph_replay(fn, x, args, g) -> bool:
     return True
 
 
+# ------------------------------------------------ the batch statistics' pair
+BN_BATCHES = (JSC_BATCH, 1024)
+BN_HIDDEN = (HIDDEN, 20)                # the unrolled instantiation and the generic one
+BN_STATS_REL = 1e-5                     # the statistics against the plain version's
+BN_NAMES = B3_NAMES[:6]
+BN_STATS_KERNEL = ("lut_bn_stats_kernel", f"ILi{HIDDEN}E")
+BN_GRAD_KERNEL = ("lut_bn_stats_grad_kernel", f"ILi{HIDDEN}E")
+
+
+def bn_args(layer, rng, batch, device):
+    """The pair's inputs from a batch-norm layer: its cell arguments before
+    the fold (w0, b0, w_out, b_out, f_in, i_in) with two input cells pruned,
+    x and cotangents (g_mean, g_var) of the statistics."""
+    import torch
+
+    args = [a.detach().clone() for a in layer._cell_args(False)[:6]]
+    args[4][0, :2] = -1.0                     # f_in: WRAP width <= 0
+    args[5][0, :2] = -1.0
+    x = torch.as_tensor(rng.normal(0, 3, (batch, layer.c_in)), dtype=torch.float32,
+                        device=device)
+    cot = [torch.as_tensor(rng.normal(0, 1, (layer.c_in, layer.c_out)), dtype=torch.float32,
+                           device=device) for _ in range(2)]
+    return x, args, cot
+
+
+def bn_check(label, x, args, cot):
+    """The pair twice on the same inputs against its plain versions: bitwise
+    equal launches, finite, the statistics within ``BN_STATS_REL`` and the
+    gradients within ``B3_REL`` of the plain ones' largest magnitudes.
+    Returns the errors by name."""
+    import torch
+    from repro_torch.kernels.lut_dense import lut_bn_stats_fused
+    from repro_torch.kernels.lut_dense_bwd import lut_bn_stats_grad_fused
+    from repro_torch.kernels.ref import lut_bn_stats_grad_ref, lut_bn_stats_ref
+
+    stats = [lut_bn_stats_fused(x, *args) for _ in range(2)]
+    grads = [lut_bn_stats_grad_fused(x, *args, stats[0][0], *cot) for _ in range(2)]
+    torch.cuda.synchronize()
+    for got, again in (stats, grads):
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got, again)),
+              f"BN stats {label}: two launches on the same inputs differ")
+    rel = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for n, a, b in zip(("mean", "var"), stats[0], lut_bn_stats_ref(x, *args))}
+    check(max(rel.values()) <= BN_STATS_REL,
+          f"BN stats {label}: statistics off the plain ones by {rel} (> {BN_STATS_REL})")
+    want = lut_bn_stats_grad_ref(x, *args, stats[0][0], *cot)
+    grel = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for n, a, b in zip(BN_NAMES, grads[0], want)}
+    worst = max(grel, key=grel.get)
+    check(all(bool(torch.isfinite(t).all()) for t in stats[0] + grads[0])
+          and grel[worst] <= B3_REL,
+          f"BN stats {label}: gradient {worst} off by {grel[worst]:.3g} of its largest "
+          f"magnitude (> {B3_REL})")
+    return {**rel, **grel}
+
+
+def bn_bounds(x, args):
+    """The pair's bounds from B2's and B3's counts: the statistics read x,
+    the weights and the input widths once and write two cell tensors, at
+    B2's operations a (b, j, o); their backward reads those, the statistics
+    and their cotangents and writes a gradient of each input, at B3's."""
+    batch, ci = x.shape
+    hidden, co = args[0].shape[1:]
+    w = sum(a.numel() for a in args[:4])
+    cells = args[4].numel()
+    fwd = bound(4 * (x.numel() + w + 2 * cells + 2 * cells), batch * ci * co * (5 * hidden + 14))
+    bwd = bound(4 * (2 * x.numel() + 2 * w + 2 * 2 * cells + 3 * cells),
+                batch * ci * co * (16 * hidden + 30))
+    return fwd, bwd
+
+
+def bn_graph_replay(x, args, cot) -> bool:
+    """The pair captured in one CUDA graph and replayed, its outputs
+    poisoned before each replay, gives the eager calls' bits."""
+    import torch
+    from repro_torch.kernels.lut_dense import lut_bn_stats_fused
+    from repro_torch.kernels.lut_dense_bwd import lut_bn_stats_grad_fused
+
+    def both():
+        mean, var = lut_bn_stats_fused(x, *args)
+        return (mean, var, *lut_bn_stats_grad_fused(x, *args, mean, *cot))
+
+    eager = [t.clone() for t in both()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    for _ in range(3):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(out, eager)):
+            return False
+    return True
+
+
+def phase_bn(device, report, tag=""):
+    """The batch statistics' pair (``lut_bn_stats_kernel``,
+    ``lut_bn_stats_grad_kernel``) at the JSC-HLF layer 0 (16 -> 20 with
+    batch-norm) at B in ``BN_BATCHES`` and H in ``BN_HIDDEN``: against its
+    plain versions, two launches alike, one device kernel each, a graph
+    replay equal to eager calls; then timed with CUDA events at H = 8 beside
+    B2 and B3 on the folded layer and the bounds of ``bn_bounds``."""
+    import torch
+    from repro_torch.core.lut_layers import LUTDense
+    from repro_torch.kernels.lut_dense import lut_bn_stats_fused, lut_dense_fused
+    from repro_torch.kernels.lut_dense_bwd import lut_bn_stats_grad_fused, lut_dense_bwd_fused
+
+    for lib, kern in (("lut_dense", BN_STATS_KERNEL), ("lut_dense_bwd", BN_GRAD_KERNEL),
+                      ("lut_dense", B2_KERNEL), ("lut_dense_bwd", B3_KERNEL)):
+        print(f"[BN{tag}] ptxas {kern[0]}, H={HIDDEN}: {ptxas_usage(lib, kern)}")
+    ci, co = JSC_DIMS[:2]
+    rows = {}
+    for hidden in BN_HIDDEN:
+        layer = LUTDense(ci, co, hidden=hidden, use_batchnorm=True, device=device,
+                         generator=torch.Generator().manual_seed(SEED + hidden))
+        rng = np.random.default_rng(SEED + hidden)
+        for b in BN_BATCHES + (1, 4099):
+            x, args, cot = bn_args(layer, rng, b, device)
+            rel = bn_check(f"H={hidden} B={b}", x, args, cot)
+            if b not in BN_BATCHES:
+                continue
+            mean, var = lut_bn_stats_fused(x, *args)
+            kern = [graph_kernels(lambda: lut_bn_stats_fused(x, *args)),
+                    graph_kernels(lambda: lut_bn_stats_grad_fused(x, *args, mean, *cot))]
+            check([len(k) for k in kern] == [1, 1], f"BN stats H={hidden} B={b}: {kern} "
+                  f"device kernels a call")
+            check(bn_graph_replay(x, args, cot),
+                  f"BN stats H={hidden} B={b}: a graph replay differs from eager calls")
+            if hidden != HIDDEN:
+                print(f"[BN{tag}] H={hidden} B={b} (generic kernels): within tolerance of "
+                      f"plain (worst {max(rel.values()):.3g}); graph replay == eager")
+                continue
+            inv = layer.bn_scale.detach() * torch.rsqrt(var + 1e-5)      # the fold
+            folded = ((args[2] * inv[:, None, :]).contiguous(),
+                      ((args[3] - mean) * inv + layer.bn_bias.detach()).contiguous())
+            b23 = (x, args[0], args[1], *folded, *args[4:6], *layer.kernel_args()[6:])
+            g = torch.ones((b, co), device=device)
+            ms = {"stats": cuda_ms(lambda: lut_bn_stats_fused(x, *args), iters=50),
+                  "stats_grad": cuda_ms(lambda: lut_bn_stats_grad_fused(x, *args, mean, *cot),
+                                        iters=50),
+                  "B2": cuda_ms(lambda: lut_dense_fused(*b23), iters=50),
+                  "B3": cuda_ms(lambda: lut_dense_bwd_fused(*b23, g), iters=50)}
+            fwd, bwd = bn_bounds(x, args)
+            rows[b] = (ms, fwd, bwd, rel)
+            print(f"[BN{tag}] {ci}->{co} H={hidden} B={b}: stats {ms['stats']:.5f} ms "
+                  f"(bound {fwd[0]:.5f}, {fwd[1]}), stats backward {ms['stats_grad']:.5f} ms "
+                  f"(bound {bwd[0]:.5f}, {bwd[1]}); B2 {ms['B2']:.5f}, B3 {ms['B3']:.5f} ms "
+                  f"on the folded layer (CUDA events, host ahead); worst error against "
+                  f"plain {max(rel.values()):.3g}; one device kernel each; graph replay == "
+                  f"eager")
+    ms, fwd, bwd, rel = rows[JSC_BATCH]
+    report["lut_bn_stats"] = {"max_rel_err": max(rel[n] for n in ("mean", "var")),
+                              "ms": ms["stats"], "bound_ms": fwd[0], "bound_by": fwd[1],
+                              "ms_b1024": rows[1024][0]["stats"], "library_ms": None,
+                              "kernels_per_call": 1}
+    report["lut_bn_stats_grad"] = {"max_rel_err": max(rel[n] for n in BN_NAMES),
+                                   "ms": ms["stats_grad"], "bound_ms": bwd[0],
+                                   "bound_by": bwd[1],
+                                   "ms_b1024": rows[1024][0]["stats_grad"],
+                                   "library_ms": None, "kernels_per_call": 1}
+
+
 # B3 past its unrolled instantiations (ROADMAP C10): the generic kernel
 C10_HIDDEN = (17, 24, 32)
 C10_TRAIN_HIDDEN = 24
@@ -1705,7 +1879,7 @@ def phase_train_run(device, layers, hp, data, cpu_layers):
     opt = init_fn()
     check(opt["step"].device == layers[0].w0.device,
           f"train: the step counter is on {opt['step'].device}, not the card")
-    per_step = {"fake_quant": 2, "lut_dense": 1, "lut_dense_bwd": 1, "lut_serve": 0}
+    per_step = PER_STEP
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(TRAIN_STEPS)]
     metrics, host_ms = [], []
@@ -1756,7 +1930,7 @@ def phase_train_run(device, layers, hp, data, cpu_layers):
     steady = [dev_ms[k] for k in keep]
     steady_host = [host_ms[k] for k in keep]
     print(f"[train] {TRAIN_STEPS} fused steps at B={JSC_BATCH}, each launching "
-          f"B1 x2, B2 x1, B3 x1; step 1 params within 2*lr of plain ({n_far} of "
+          f"{per_step}; step 1 params within 2*lr of plain ({n_far} of "
           f"{n_all} elements beyond 1e-3*lr); loss finite; mean CE first 10 "
           f"{ce_first:.4f} -> last 10 {ce_last:.4f}; EBOPs {hist[0, 2]:.0f} -> "
           f"{hist[-1, 2]:.0f}")
@@ -1814,11 +1988,14 @@ def serve_trained(device, layers, data, tag):
 # the port's train kernels, by the names of their device kernels
 KERNEL_MARKS = {"fake_quant": ("fq_column_kernel", "fq_general_kernel"),
                 "lut_dense": ("lut_dense_forward_kernel",),
-                "lut_dense_bwd": ("lut_dense_bwd_",)}
+                "lut_dense_bwd": ("lut_dense_bwd_",),
+                "lut_bn_stats": ("lut_bn_stats_kernel",),
+                "lut_bn_stats_grad": ("lut_bn_stats_grad_",)}
 
 
 def kernel_counts(names) -> dict:
-    """Device kernels of each of B1-B3 among the kernel names ``names``."""
+    """Device kernels of each of B1-B3 and the batch statistics' pair
+    among the kernel names ``names``."""
     return {k: sum(any(m in n for m in marks) for n in names)
             for k, marks in KERNEL_MARKS.items()}
 
@@ -1885,7 +2062,10 @@ LOOP_BOUNDARY = 100
 LOOP_CRASH = 130
 LOOP_TIMING_RUNS = 3
 # kernel launches of one train step
-PER_STEP = {"fake_quant": 2, "lut_dense": 1, "lut_dense_bwd": 1, "lut_serve": 0}
+# a JSC-HLF train step: layer 0's batch statistics and their backward, and
+# B2 and B3 on both layers; no B1 (a step that launches it took the einsum path)
+PER_STEP = {"fake_quant": 0, "lut_dense": 2, "lut_dense_bwd": 2, "lut_serve": 0,
+            "lut_bn_stats": 1, "lut_bn_stats_grad": 1}
 
 
 def state_bytes(layers, opt) -> dict:
@@ -1947,8 +2127,8 @@ def loop_chunked(hp, data, layers, mode, chunk_steps, start=0, stop=None,
                  opt=None, on_chunk=None):
     """Steps ``[start, stop)`` through ``run_chunked`` in ``mode`` with the
     boundary ``LOOP_BOUNDARY``, batches from ``host_batch`` on the prefetch
-    thread; each chunk must launch B1 x2, B2 and B3 once per step (and once
-    more for a graph's warm-up step).  Returns the state, metrics, the chunks
+    thread; each chunk must launch ``PER_STEP`` a step (and once more for a
+    graph's warm-up step).  Returns the state, metrics, the chunks
     ``(step, k, compiled)`` and timings: ms/step between CUDA events over the
     run, steady ms/step and host (enqueue) ms/step over the chunks that did
     not capture, steps/s over the run, the capture time (the capturing
@@ -2130,7 +2310,7 @@ def profile_window(fn, n_steps, name, nodes=None):
 def loop_profiles(device, hp, data, layers0):
     """Profiles of the three modes on copies of the start: 5 per-step steps,
     one eager chunk of 8, one graph replay of 8 and of 40 (after the chunk
-    that captured it).  Each replayed step must hold B1 twice, B2 and B3 once
+    that captured it).  Each replayed step must hold ``PER_STEP``'s kernels
     among the kernel nodes of the graph that ``make_chunked_step`` captured
     (dumped), and count as many launches; neither source drops events, and
     the profiles give the times (``profile_window``)."""
@@ -2174,7 +2354,7 @@ def loop_profiles(device, hp, data, layers0):
         nodes = {n: c / k for n, c in kernel_counts(names).items()}
         st = profile_window(call, k, f"loop_{mode}_{k}.json", nodes=len(names))
         check(nodes == want and st["launches"] == want,
-              f"loop: a replayed step of {k} holds {nodes} B1-B3 kernel nodes in its graph "
+              f"loop: a replayed step of {k} holds {nodes} port kernel nodes in its graph "
               f"and counted {st['launches']} launches, not {want}")
         st["nodes"] = len(names) / k
         out[(mode, k)] = st
@@ -2243,9 +2423,11 @@ PID_SERVE = {100: (1024, 16600), 3000: (1024,)}
 PID_N_BATCHES = 3
 # a pid step on the example's path: B1 for the front's two quantizers and
 # each LUT layer's two (the LUT layers on the einsum path, as the reference's)
-PID_PER_STEP = {"fake_quant": 8, "lut_dense": 0, "lut_dense_bwd": 0, "lut_serve": 0}
+PID_PER_STEP = {"fake_quant": 8, "lut_dense": 0, "lut_dense_bwd": 0, "lut_serve": 0,
+                "lut_bn_stats": 0, "lut_bn_stats_grad": 0}
 # the same step with the LUT layers on the fused pair (B2 forward, B3 backward)
-PID_FUSED_STEP = {"fake_quant": 2, "lut_dense": 3, "lut_dense_bwd": 3, "lut_serve": 0}
+PID_FUSED_STEP = {"fake_quant": 2, "lut_dense": 3, "lut_dense_bwd": 3, "lut_serve": 0,
+                  "lut_bn_stats": 0, "lut_bn_stats_grad": 0}
 PID_PROFILE_STEPS = (200, 205)
 
 
@@ -5692,6 +5874,22 @@ def main_b3_timing() -> int:
     return 0
 
 
+def main_bn_timing() -> int:
+    """``--bn-timing``: only the batch statistics' pair, checked against its
+    plain versions and timed at the JSC-HLF layer 0 beside B2 and B3, with
+    the registers of all four (the same harness for two trees, run from each
+    tree's root); prints no result line."""
+    import torch
+
+    phase_device()
+    try:
+        phase_bn(torch.device("cuda:0"), {}, tag=f" {os.path.basename(REPO)}")
+    except SmokeError as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main_b4_timing() -> int:
     """``--b4-timing``: only B4's timings on the JSC-HLF chain (int32, as
     served) at B in ``B4_TIMING_BATCHES``, with its registers, launch plan
@@ -5815,6 +6013,8 @@ def main() -> int:
         return main_b3_timing()
     if sys.argv[1:] == ["--b4-timing"]:
         return main_b4_timing()
+    if sys.argv[1:] == ["--bn-timing"]:
+        return main_bn_timing()
     if sys.argv[1:] == ["--lm"]:
         return main_lm()
     if sys.argv[1:] == ["--zoo"]:
@@ -5831,8 +6031,10 @@ def main() -> int:
     device = torch.device("cuda:0")
     report = {}
     paths = {"serve": ("lut_dense", "lut_serve"),
-             "train": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
-             "loop": ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve"),
+             "train": ("lut_bn_stats", "lut_bn_stats_grad", "lut_dense", "lut_dense_bwd",
+                       "lut_serve"),
+             "loop": ("lut_bn_stats", "lut_bn_stats_grad", "lut_dense", "lut_dense_bwd",
+                      "lut_serve"),
              "pid": ("fake_quant", "lut_serve"),
              "tooling": ("lut_serve",),
              "stack": ("lut_serve",),
@@ -5843,6 +6045,7 @@ def main() -> int:
         phase_b1(device, report)
         phase_b2(device, report)
         phase_b3(device, report)
+        phase_bn(device, report)
         phase_c10(device)
         ops.reset_launch_counts()                      # path 1: serve
         prog = phase_slice_float(device)
@@ -5906,6 +6109,10 @@ def main() -> int:
                           "src/repro/kernels/lut_dense_bwd.py:131"),
         "lut_serve": ("src/repro_torch/csrc/lut_serve.cu",
                       "src/repro/kernels/lut_serve_pallas.py:362"),
+        "lut_bn_stats": ("src/repro_torch/csrc/lut_dense.cu",
+                         "src/repro/core/lut_layers.py (train-mode batch-norm statistics)"),
+        "lut_bn_stats_grad": ("src/repro_torch/csrc/lut_dense_bwd.cu",
+                              "src/repro/core/lut_layers.py (their backward)"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(launches[p][name] for p in paths), **report[name]}

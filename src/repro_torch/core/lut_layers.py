@@ -16,10 +16,13 @@ The module keeps the reference's parameter keys and layouts: ``w0``/``b0``/
 ``(C_in, H, C_out)`` happens at the kernel call.
 
 ``forward`` follows ``module.training``.  With ``use_fused`` it goes through
-the fused pair (kernel B2 forward, kernel B3 backward, ``kernels/ops.py``),
-except in train mode with batch-norm, whose batch statistics need the
-pre-quantization activations: that combination takes the einsum path, as in
-the reference.
+the fused pair (kernel B2 forward, kernel B3 backward, ``kernels/ops.py``).
+In train mode with batch-norm the batch statistics of the pre-quantization
+cell outputs come first, from their own kernel pair (``ops.lut_bn_stats``),
+and are folded into B2's output projection as the eval path folds the
+moving stats; a batch-norm layer the fused pair does not cover (more
+hidden layers, relu, other quantizers) takes the einsum path in train
+mode, as in the reference.
 
 ``LUTConv1D`` / ``LUTConv2D`` are im2col followed by LUT-Dense (paper
 §IV-A): each holds a ``dense`` LUT-Dense over the ``(kernel·C_in, C_out)``
@@ -139,6 +142,33 @@ class LUTDense(nn.Module):
                          bitwidth(self.q_out, self.cfg_out))
 
     # ------------------------------------------------- fused kernels B2/B3
+    def fused_covers(self) -> bool:
+        """Whether the fused kernels cover this layer's cells: the paper
+        default, one hidden tanh layer between a signed WRAP input and a
+        signed SAT output quantizer."""
+        return (self.n_hidden_layers == 1 and self.activation == "tanh"
+                and self.cfg_in.overflow == "WRAP" and self.cfg_out.overflow == "SAT"
+                and self.cfg_in.signed and self.cfg_out.signed)
+
+    def _cell_args(self, train: bool) -> Tuple[torch.Tensor, ...]:
+        """:meth:`kernel_args` before the batch-norm fold, attached."""
+        if self.n_hidden_layers != 1 or self.activation != "tanh":
+            raise NotImplementedError("fused kernel covers the paper default "
+                                      "(1 hidden tanh layer)")
+        if not self.fused_covers():
+            raise NotImplementedError("fused kernel covers the paper default "
+                                      "quantizers (signed WRAP in, signed "
+                                      "SAT out)")
+        w0 = self.w0.permute(0, 2, 1)                       # (Ci, H, Co)
+        b0 = self.b0.permute(0, 2, 1)
+        wo = self.w_out.permute(0, 2, 1)
+        grid = (self.c_in, self.c_out)
+        fi, ii = ste_bits(self.q_in, self.cfg_in, train=train)
+        fo, io = ste_bits(self.q_out, self.cfg_out, train=train)
+        fi, ii, fo, io = (torch.broadcast_to(a, grid) for a in (fi, ii, fo, io))
+        return tuple(a.float().contiguous()
+                     for a in (w0, b0, wo, self.b_out, fi, ii, fo, io))
+
     def kernel_args(self, train: bool = False) -> Tuple[torch.Tensor, ...]:
         """``(w0, b0, w_out, b_out, f_in, i_in, f_out, i_out)`` as kernels
         B2/B3 take them: weights transposed to (C_in, H, C_out), BN folded
@@ -147,28 +177,35 @@ class LUTDense(nn.Module):
         they stay attached to the parameters, so gradients reach ``w0`` /
         ``b0`` / ``w_out`` through the transpose and the bit-width
         parameters through the clip and ``round_ste``; else detached."""
-        if self.n_hidden_layers != 1 or self.activation != "tanh":
-            raise NotImplementedError("fused kernel covers the paper default "
-                                      "(1 hidden tanh layer)")
-        if (self.cfg_in.overflow != "WRAP" or self.cfg_out.overflow != "SAT"
-                or not (self.cfg_in.signed and self.cfg_out.signed)):
-            raise NotImplementedError("fused kernel covers the paper default "
-                                      "quantizers (signed WRAP in, signed "
-                                      "SAT out)")
-        w0 = self.w0.permute(0, 2, 1)                       # (Ci, H, Co)
-        b0 = self.b0.permute(0, 2, 1)
-        wo = self.w_out.permute(0, 2, 1)
-        bo = self.b_out
+        w0, b0, wo, bo, fi, ii, fo, io = self._cell_args(train)
         if self.use_batchnorm:
             scale, bias = self.bn_affine()
             wo = wo * scale[:, None, :]
             bo = bo * scale + bias
-        grid = (self.c_in, self.c_out)
-        fi, ii = ste_bits(self.q_in, self.cfg_in, train=train)
-        fo, io = ste_bits(self.q_out, self.cfg_out, train=train)
-        fi, ii, fo, io = (torch.broadcast_to(a, grid) for a in (fi, ii, fo, io))
-        args = tuple(a.float().contiguous() for a in (w0, b0, wo, bo, fi, ii, fo, io))
+        args = (w0, b0, wo, bo, fi, ii, fo, io)
         return args if train else tuple(a.detach() for a in args)
+
+    def _fused_bn_train(self, x: torch.Tensor):
+        """Train-mode batch-norm on the fused pair: each cell's batch mean
+        and population variance from ``ops.lut_bn_stats``, folded into the
+        output projection (``w_out * inv``, ``(b_out - mean) * inv +
+        bn_bias`` with ``inv = bn_scale * rsqrt(var + 1e-5)``), then B2/B3.
+        Gradients reach the statistics through the fold.  Returns the
+        output and the moving-stat updates."""
+        from repro_torch.kernels import ops
+
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, self.c_in).float().contiguous()
+        w0, b0, wo, bo, fi, ii, fo, io = self._cell_args(True)
+        mean, var = ops.lut_bn_stats(xf, w0, b0, wo, bo, fi, ii)
+        inv = self.bn_scale * torch.rsqrt(var + 1e-5)
+        wo = wo * inv[:, None, :]
+        bo = (bo - mean) * inv + self.bn_bias
+        y = ops.lut_dense(xf, w0, b0, wo, bo, fi, ii, fo, io)
+        m = self.bn_momentum
+        updates = {"bn_mean": m * self.bn_mean + (1 - m) * mean.detach(),
+                   "bn_var": m * self.bn_var + (1 - m) * var.detach()}
+        return y.reshape(*lead, self.c_out), updates
 
     def _fused_forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
         from repro_torch.kernels import ops
@@ -192,10 +229,12 @@ class LUTDense(nn.Module):
         train = self.training
         fused = self.use_fused if fused is None else fused
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        # BN + train needs batch-wide statistics -> einsum fallback
         if fused and not (self.use_batchnorm and train):
             return (self._fused_forward(x, train=train),
                     Aux(ebops=self._ebops(), aux_loss=zero))
+        if fused and self.fused_covers():       # BN + train: the statistics' pair first
+            y, updates = self._fused_bn_train(x)
+            return y, Aux(ebops=self._ebops(), aux_loss=zero, updates=updates)
         cells, updates = self._cells(x, train)
         out = torch.sum(cells, dim=-2)                 # Σ over C_in — Eq. (1)
         return out, Aux(ebops=self._ebops(), aux_loss=zero, updates=updates)

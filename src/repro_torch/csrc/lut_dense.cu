@@ -66,16 +66,16 @@ static_assert(sizeof(lut::Cell) % sizeof(float4) == 0, "cells are staged as floa
 // its plan against lut_dense_forward_smem once per shape on the card
 static_assert(sizeof(lut::Cell) == 64, "update CELL_BYTES in kernels/lut_dense.py");
 
-// One (b, j, o): SAT(sum_h w_out * tanh(WRAP(x) * w0 + b0) + b_out) of cell
-// c.  H > 0: the cell's weights are ws[0..H); H == 0: hidden of them in
-// global memory from index w, c_out apart.
+// One (b, j, o) before its output quantizer: sum_h w_out * tanh(WRAP(x) *
+// w0 + b0) + b_out of cell c.  H > 0: the cell's weights are ws[0..H); H ==
+// 0: hidden of them in global memory from index w, c_out apart.
 template <int H>
-__device__ __forceinline__ float cell_value(float xv, const lut::Cell& c,
-                                            const float4* __restrict__ ws,
-                                            const float* __restrict__ w0,
-                                            const float* __restrict__ b0,
-                                            const float* __restrict__ wo, int w,
-                                            int hidden, int c_out) {
+__device__ __forceinline__ float cell_raw(float xv, const lut::Cell& c,
+                                          const float4* __restrict__ ws,
+                                          const float* __restrict__ w0,
+                                          const float* __restrict__ b0,
+                                          const float* __restrict__ wo, int w,
+                                          int hidden, int c_out) {
   float xq;
   if (!fq::quant_fast<true, true>(xv, c.in, xq))
     xq = fq::quantize_slow<true, true>(xv, c.f_in, c.i_in);
@@ -94,7 +94,18 @@ __device__ __forceinline__ float cell_value(float xv, const lut::Cell& c,
       y = h == 0 ? p : __fadd_rn(y, p);
     }
   }
-  return lut::sat_out(__fadd_rn(y, c.bias), c);
+  return __fadd_rn(y, c.bias);
+}
+
+// One (b, j, o): SAT(cell_raw) on cell c's output grid.
+template <int H>
+__device__ __forceinline__ float cell_value(float xv, const lut::Cell& c,
+                                            const float4* __restrict__ ws,
+                                            const float* __restrict__ w0,
+                                            const float* __restrict__ b0,
+                                            const float* __restrict__ wo, int w,
+                                            int hidden, int c_out) {
+  return lut::sat_out(cell_raw<H>(xv, c, ws, w0, b0, wo, w, hidden, c_out), c);
 }
 
 template <int H>
@@ -185,6 +196,181 @@ long long forward_smem(int block_rows, int j_chunk, int o_chunk, int hidden) {
          static_cast<long long>(block_rows) * (j_chunk | 1) * sizeof(float);
 }
 
+// ---------------------------------------------------------------------------
+// The batch statistics of train-mode batch-norm on the cell outputs: for
+// every cell (j, o), the mean and the population variance over the batch of
+//   y[b, j, o] = sum_h w_out * tanh(WRAP(x[b, j]) * w0 + b0) + b_out,
+// cell_raw above, B2's cell before its SAT.  The caller folds them into B2's
+// output projection (core/lut_layers.py); nothing of size (B, C_in, C_out)
+// is written.
+//  * B3's grid (kernels/lut_dense_bwd.py::launch_plan): n_split x C_in
+//    blocks, block (s, j) owning input channel j and the batch rows
+//    [s*R, (s+1)*R).  A thread holds its rows tid, tid + 256, ... (at most
+//    STATS_ROWS of them) in registers: x once, then y of one o at a time.
+//  * The variance from deviations about a mean, never as sum(y^2)/B -
+//    mean^2: a thread forms its rows' (count, mean, M2) in two passes over
+//    its registers; a warp merges its lanes' by Chan's formula down a fixed
+//    shuffle tree, the block its warps' in index order into one partial per
+//    (split, j, o), and the last block of j to finish (a ticket, as B3)
+//    merges the n_split partials in split order.  No float atomics and no
+//    order that depends on scheduling: two launches give the same bits.
+//  * Per chunk of o (all of C_out at the JSC shapes) the cells' input
+//    constants and weights are staged once for the block in shared memory,
+//    as B3 stages them; H = 0 is the generic instantiation (any H > 16),
+//    the weights read from global memory.
+constexpr int STATS_THREADS = 256;
+constexpr int STATS_WARPS = STATS_THREADS / 32;
+constexpr int STATS_ROWS = 8;                      // rows a thread holds
+constexpr int STATS_MAX_SPLIT_ROWS = STATS_THREADS * STATS_ROWS;
+constexpr int STATS_O_CHUNK = 32;
+
+struct Moments {
+  int n;                                           // rows
+  float mean, m2;                                  // their mean, sum of squared deviations
+};
+
+// Chan, Golub and LeVeque's pairwise update: the moments of a's rows and b's
+__device__ __forceinline__ Moments merge(const Moments& a, const Moments& b) {
+  if (b.n == 0) return a;
+  if (a.n == 0) return b;
+  const int n = a.n + b.n;
+  const float fb = static_cast<float>(b.n) / static_cast<float>(n);
+  const float delta = b.mean - a.mean;
+  return {n, fmaf(delta, fb, a.mean),
+          a.m2 + b.m2 + delta * delta * static_cast<float>(a.n) * fb};
+}
+
+__device__ __forceinline__ Moments shfl_down(const Moments& m, int off) {
+  return {__shfl_down_sync(0xffffffffu, m.n, off), __shfl_down_sync(0xffffffffu, m.mean, off),
+          __shfl_down_sync(0xffffffffu, m.m2, off)};
+}
+
+template <int H>
+__global__ void __launch_bounds__(STATS_THREADS) lut_bn_stats_kernel(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ wo,
+    const float* __restrict__ bo, const float* __restrict__ fi,
+    const float* __restrict__ ii, float* __restrict__ mean, float* __restrict__ var,
+    float* __restrict__ partial, unsigned* __restrict__ tickets, int batch, int c_in,
+    int hidden, int c_out, int n_split, int split_rows) {
+  __shared__ float4 wsm[STATS_O_CHUNK * (H > 0 ? H : 1)];   // (w0, b0, w_out) by (o, h)
+  __shared__ lut::Cell csm[STATS_O_CHUNK];
+  __shared__ Moments slot[STATS_WARPS][STATS_O_CHUNK];
+  __shared__ bool last;
+  const int split = blockIdx.x % n_split;
+  const int j = blockIdx.x / n_split;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = split * split_rows;
+  const int n_rows = min(split_rows, batch - row0);
+
+  float xr[STATS_ROWS];
+  int n_mine = 0;                                  // rows k < n_mine are this thread's
+#pragma unroll
+  for (int k = 0; k < STATS_ROWS; ++k) {
+    const int r = threadIdx.x + k * STATS_THREADS;
+    xr[k] = r < n_rows ? __ldg(x + static_cast<long long>(row0 + r) * c_in + j) : 0.0f;
+    n_mine += r < n_rows;
+  }
+
+  for (int o0 = 0; o0 < c_out; o0 += STATS_O_CHUNK) {
+    const int o_n = min(STATS_O_CHUNK, c_out - o0);
+    if (o0 > 0) __syncthreads();                   // the previous chunk is read
+    if constexpr (H > 0) {
+      for (int e = threadIdx.x; e < o_n * H; e += STATS_THREADS) {
+        const int ol = e / H, h = e - ol * H;
+        const int w = (j * H + h) * c_out + o0 + ol;
+        wsm[ol * H + h] = make_float4(__ldg(w0 + w), __ldg(b0 + w), __ldg(wo + w), 0.0f);
+      }
+    }
+    for (int e = threadIdx.x; e < o_n; e += STATS_THREADS) {
+      const int cell = j * c_out + o0 + e;         // the output grid is not used
+      csm[e] = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), 0.0f, 0.0f,
+                              __ldg(bo + cell));
+    }
+    __syncthreads();
+    for (int ol = 0; ol < o_n; ++ol) {
+      const int o = o0 + ol;
+      const lut::Cell cl = csm[ol];
+      float y[STATS_ROWS];
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < STATS_ROWS; ++k) {
+        if (k < n_mine) {
+          y[k] = cell_raw<H>(xr[k], cl, wsm + ol * H, w0, b0, wo, j * hidden * c_out + o,
+                             hidden, c_out);
+          s = k == 0 ? y[k] : s + y[k];
+        }
+      }
+      Moments m = {n_mine, 0.0f, 0.0f};
+      if (n_mine > 0) {
+        m.mean = s / static_cast<float>(n_mine);
+#pragma unroll
+        for (int k = 0; k < STATS_ROWS; ++k) {
+          if (k < n_mine) {
+            const float d = y[k] - m.mean;
+            m.m2 = fmaf(d, d, m.m2);
+          }
+        }
+      }
+      // lane 0 ends with the warp's rows (the other lanes' ends are unused)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = merge(m, shfl_down(m, off));
+      if (lane == 0) slot[warp][ol] = m;
+    }
+    // the chunk's partials: the warps' moments merged in index order
+    __syncthreads();
+    for (int ol = threadIdx.x; ol < o_n; ol += STATS_THREADS) {
+      Moments m = slot[0][ol];
+#pragma unroll
+      for (int w = 1; w < STATS_WARPS; ++w) m = merge(m, slot[w][ol]);
+      float* p = partial + (static_cast<long long>(split) * c_in + j) * 2 * c_out + o0 + ol;
+      p[0] = m.mean;
+      p[c_out] = m.m2;
+    }
+  }
+
+  // the last block of j to finish merges the partials in split order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + j, 1u) == static_cast<unsigned>(n_split - 1);
+  __syncthreads();
+  if (!last) return;
+  const long long stride = static_cast<long long>(c_in) * 2 * c_out;   // one split
+  for (int o = threadIdx.x; o < c_out; o += STATS_THREADS) {
+    const float* p = partial + static_cast<long long>(j) * 2 * c_out + o;
+    Moments m = {0, 0.0f, 0.0f};
+    for (int t = 0; t < n_split; t += 8) {         // 8 splits' loads in flight
+      float a[8], b[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        a[u] = t + u < n_split ? __ldcg(p + (t + u) * stride) : 0.0f;
+        b[u] = t + u < n_split ? __ldcg(p + (t + u) * stride + c_out) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (t + u < n_split)
+          m = merge(m, {min(split_rows, batch - (t + u) * split_rows), a[u], b[u]});
+    }
+    mean[j * c_out + o] = m.mean;
+    var[j * c_out + o] = m.m2 / static_cast<float>(batch);
+  }
+  if (threadIdx.x == 0) tickets[j] = 0u;
+}
+
+using StatsKernel = decltype(&lut_bn_stats_kernel<0>);
+
+// stats_kernels[H] is the instantiation for H = 1..MAX_H, [0] the generic one
+const StatsKernel stats_kernels[MAX_H + 1] = {
+    lut_bn_stats_kernel<0>,  lut_bn_stats_kernel<1>,  lut_bn_stats_kernel<2>,
+    lut_bn_stats_kernel<3>,  lut_bn_stats_kernel<4>,  lut_bn_stats_kernel<5>,
+    lut_bn_stats_kernel<6>,  lut_bn_stats_kernel<7>,  lut_bn_stats_kernel<8>,
+    lut_bn_stats_kernel<9>,  lut_bn_stats_kernel<10>, lut_bn_stats_kernel<11>,
+    lut_bn_stats_kernel<12>, lut_bn_stats_kernel<13>, lut_bn_stats_kernel<14>,
+    lut_bn_stats_kernel<15>, lut_bn_stats_kernel<16>};
+
+StatsKernel stats_kernel_for(int hidden) { return stats_kernels[hidden <= MAX_H ? hidden : 0]; }
+
 }  // namespace
 
 // The dynamic shared memory in bytes that lut_dense_forward gives a block
@@ -247,4 +433,46 @@ extern "C" int lut_dense_forward(const void* x, const void* w0, const void* b0,
 
 extern "C" const char* lut_dense_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" int lut_bn_stats_max_split_rows() { return STATS_MAX_SPLIT_ROWS; }
+
+// Resident blocks an SM holds of the statistics kernel for `hidden` on the
+// current device (the occupancy query); 0 for an invalid hidden.
+extern "C" int lut_bn_stats_blocks_per_sm(int hidden) {
+  if (hidden < 1) return 0;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, reinterpret_cast<const void*>(stats_kernel_for(hidden)), STATS_THREADS,
+          0) != cudaSuccess)
+    return 0;
+  return per_sm;
+}
+
+// x (batch, c_in); w0, b0, wo (c_in, hidden, c_out); bo and the integer-
+// valued input widths fi, ii (c_in, c_out); mean, var (c_in, c_out) out;
+// all float32, contiguous.  partial: n_split * c_in * 2 * c_out floats of
+// scratch; tickets: c_in zeros, left zero.  Split s covers the batch rows
+// [s * split_rows, min((s + 1) * split_rows, batch)), none of them empty.
+extern "C" int lut_bn_stats(const void* x, const void* w0, const void* b0, const void* wo,
+                            const void* bo, const void* fi, const void* ii, void* mean,
+                            void* var, void* partial, void* tickets, int batch, int c_in,
+                            int hidden, int c_out, int n_split, int split_rows,
+                            void* stream) {
+  if (batch < 1 || hidden < 1 || c_in < 0 || c_out < 0 || n_split < 1 || split_rows < 1 ||
+      split_rows > STATS_MAX_SPLIT_ROWS ||
+      static_cast<long long>(n_split) * split_rows < batch ||
+      static_cast<long long>(n_split - 1) * split_rows >= batch ||
+      static_cast<long long>(n_split) * c_in > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (c_in == 0 || c_out == 0) return 0;
+  stats_kernel_for(hidden)<<<n_split * c_in, STATS_THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w0),
+      static_cast<const float*>(b0), static_cast<const float*>(wo),
+      static_cast<const float*>(bo), static_cast<const float*>(fi),
+      static_cast<const float*>(ii), static_cast<float*>(mean), static_cast<float*>(var),
+      static_cast<float*>(partial), static_cast<unsigned*>(tickets), batch, c_in, hidden,
+      c_out, n_split, split_rows);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -66,6 +66,15 @@
 // plain version rounds twice), and the sums over the batch run in another
 // order: within 1e-4 of the plain version's largest gradient.
 //
+// The backward of train-mode batch-norm's batch statistics (the mean and
+// population variance of y over the batch, csrc/lut_dense.cu's
+// lut_bn_stats_kernel) is this kernel too, in its BN mode
+// (lut_bn_stats_grad_kernel, lut_bn_stats_grad_generic): the same grid,
+// scratch, recompute and sums, with the row's cotangent of y set by the
+// cell's (mean, g_mean, g_var) in place of the output quantizer's surrogate
+// of g, so it has no dfo and no dio.  Its plain version is
+// kernels/ref.py::lut_bn_stats_grad_ref.
+//
 // Any H > 16 runs lut_dense_bwd_generic: the same grid, partials and
 // tickets, the forward recomputed in the same operations, but H a runtime
 // count that cannot size register arrays.  Per o, a first pass over the
@@ -92,9 +101,11 @@ constexpr int SLOT_FLOATS = 6144;             // per-warp sums of one chunk of o
 constexpr float LN2 = 0.693147180559945309f;  // float32(log 2), as the plain version
 constexpr int HC = 16;                        // hidden units of a chunk of the generic kernel
 
-template <int H>
+// BN: the batch-statistics backward (lut_bn_stats_grad_kernel), which has
+// no output quantizer and so no dfo, dio
+template <int H, bool BN>
 struct Sums {
-  static constexpr int NQ = 3 * H + 4;        // dw0[H] db0[H] dwo[H] dbo dfi dfo dio
+  static constexpr int NQ = 3 * H + (BN ? 2 : 4);   // dw0[H] db0[H] dwo[H] dbo dfi [dfo dio]
   static constexpr int M = (NQ + 31) / 32;    // sums a lane holds after the fold
   static constexpr int O_CHUNK = SLOT_FLOATS / (WARPS * NQ) < 32
                                      ? SLOT_FLOATS / (WARPS * NQ) : 32;
@@ -136,8 +147,8 @@ __device__ __forceinline__ void finish(
     float* __restrict__ dbo, float* __restrict__ dfi, float* __restrict__ dfo,
     float* __restrict__ dio, const float* __restrict__ partial,
     unsigned* __restrict__ tickets, bool& last, int j, int c_in, int c_out, int n_split,
-    int hidden) {
-  const int NQ = 3 * hidden + 4;
+    int hidden, bool bn) {
+  const int NQ = 3 * hidden + (bn ? 2 : 4);
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(tickets + j, 1u) == static_cast<unsigned>(n_split - 1);
@@ -169,8 +180,13 @@ __device__ __forceinline__ void finish(
   if (threadIdx.x == 0) tickets[j] = 0u;
 }
 
-template <int H>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
+// The body of lut_dense_bwd_kernel (BN false) and of lut_bn_stats_grad_kernel
+// (BN true).  With BN, fo, io and g carry each cell's batch mean, g_mean
+// and g_var, all (C_in, C_out), and the cotangent of a row's raw cell
+// output y is g_mean / B + (2 g_var / B) (y - mean), the VJP of the mean
+// and population variance; dfo and dio are not written.
+template <int H, bool BN>
+__device__ __forceinline__ void bwd_body(
     const float* __restrict__ x, const float* __restrict__ w0,
     const float* __restrict__ b0, const float* __restrict__ wo,
     const float* __restrict__ bo, const float* __restrict__ fi,
@@ -181,12 +197,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
     float* __restrict__ dfo, float* __restrict__ dio, float* __restrict__ partial,
     unsigned* __restrict__ tickets, int batch, int c_in, int c_out, int n_split,
     int split_rows) {
-  constexpr int NQ = Sums<H>::NQ, M = Sums<H>::M, O_CHUNK = Sums<H>::O_CHUNK;
+  constexpr int NQ = Sums<H, BN>::NQ, M = Sums<H, BN>::M, O_CHUNK = Sums<H, BN>::O_CHUNK;
   __shared__ float xs[MAX_SPLIT_ROWS];
   __shared__ float dxs[MAX_SPLIT_ROWS];
   __shared__ float slot[WARPS][O_CHUNK][NQ];
   __shared__ float4 wsm[O_CHUNK][H];         // the chunk's (w0, b0, w_out) by (o, h)
   __shared__ lut::Cell csm[O_CHUNK];
+  __shared__ float4 bsm[BN ? O_CHUNK : 1];   // BN: (mean, g_mean / B, 2 g_var / B)
   __shared__ bool last;
   const int split = blockIdx.x % n_split;
   const int j = blockIdx.x / n_split;
@@ -225,14 +242,23 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
     }
     for (int e = threadIdx.x; e < o_n; e += THREADS) {
       const int cell = j * c_out + o0 + e;
-      csm[e] = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), __ldg(fo + cell),
-                         __ldg(io + cell), __ldg(bo + cell));
+      if constexpr (BN) {                    // the output grid is not used
+        csm[e] = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), 0.0f, 0.0f,
+                                __ldg(bo + cell));
+        const float n = static_cast<float>(batch);
+        bsm[e] = make_float4(__ldg(fo + cell), __fdiv_rn(__ldg(io + cell), n),
+                             __fdiv_rn(__fmul_rn(2.0f, __ldg(g + cell)), n), 0.0f);
+      } else {
+        csm[e] = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), __ldg(fo + cell),
+                           __ldg(io + cell), __ldg(bo + cell));
+      }
     }
     __syncthreads();
     for (int ol = 0; ol < o_n; ++ol) {
       const int o = o0 + ol;
       const lut::Cell cl = csm[ol];
       const fq::Width& wi = cl.in;
+      const float4 bn = bsm[BN ? ol : 0];
       const bool last_o = o == c_out - 1;
       float w0h[H], b0h[H], woh[H];
 #pragma unroll
@@ -248,7 +274,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
 
       for (int r = threadIdx.x; r < n_rows; r += THREADS) {
         const float xv = xs[r];
-        const float gv = __ldg(g + static_cast<long long>(row0 + r) * c_out + o);
+        const float gv = BN ? 0.0f : __ldg(g + static_cast<long long>(row0 + r) * c_out + o);
         // the input quantizer: one product x * 2^f gives round(x) and WRAP(x)
         float xq = 0.0f, r_in = 0.0f;
         if (wi.fast) {
@@ -269,16 +295,22 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
           y = __fadd_rn(y, __fmul_rn(hv[h], woh[h]));
         }
         y = __fadd_rn(y, cl.bias);
-        const float r_out = lut::round_out(y, cl);
-        // the quantizers' surrogates and the MLP's VJP
-        const bool chi = r_out > cl.hi;
-        const bool clo = r_out < -cl.p2;
-        const float gy = (cl.alive_o && !chi && !clo) ? gv : 0.0f;
-        const float dfo_s = chi ? __fmul_rn(LN2, cl.scale_o)
-                                : (clo ? 0.0f : __fmul_rn(LN2, __fsub_rn(y, r_out)));
-        const float dio_s = chi ? __fmul_rn(LN2, cl.p2) : (clo ? __fmul_rn(-LN2, cl.p2) : 0.0f);
-        acc[3 * H + 2] = cl.alive_o ? madd(dfo_s, gv, acc[3 * H + 2]) : acc[3 * H + 2];
-        acc[3 * H + 3] = cl.alive_o ? madd(dio_s, gv, acc[3 * H + 3]) : acc[3 * H + 3];
+        float gy;
+        if constexpr (BN) {                  // the statistics' VJP
+          gy = __fadd_rn(bn.y, __fmul_rn(bn.z, __fsub_rn(y, bn.x)));
+        } else {
+          const float r_out = lut::round_out(y, cl);
+          // the quantizers' surrogates and the MLP's VJP
+          const bool chi = r_out > cl.hi;
+          const bool clo = r_out < -cl.p2;
+          gy = (cl.alive_o && !chi && !clo) ? gv : 0.0f;
+          const float dfo_s = chi ? __fmul_rn(LN2, cl.scale_o)
+                                  : (clo ? 0.0f : __fmul_rn(LN2, __fsub_rn(y, r_out)));
+          const float dio_s = chi ? __fmul_rn(LN2, cl.p2)
+                                  : (clo ? __fmul_rn(-LN2, cl.p2) : 0.0f);
+          acc[3 * H + 2] = cl.alive_o ? madd(dfo_s, gv, acc[3 * H + 2]) : acc[3 * H + 2];
+          acc[3 * H + 3] = cl.alive_o ? madd(dio_s, gv, acc[3 * H + 3]) : acc[3 * H + 3];
+        }
         acc[3 * H] = __fadd_rn(acc[3 * H], gy);
         float gxq = 0.0f;
 #pragma unroll
@@ -355,8 +387,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
   if (threadIdx.x == 0) tickets[j] = 0u;
 }
 
-// H > 16: the kernel above with H a runtime count (the note at the top).
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
+// H > 16: the body above with H a runtime count (the note at the top).
+template <bool BN>
+__device__ __forceinline__ void generic_body(
     const float* __restrict__ x, const float* __restrict__ w0,
     const float* __restrict__ b0, const float* __restrict__ wo,
     const float* __restrict__ bo, const float* __restrict__ fi,
@@ -368,12 +401,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
     unsigned* __restrict__ tickets, int batch, int c_in, int c_out, int n_split,
     int split_rows, int hidden) {
   constexpr int M = (3 * HC + 31) / 32;      // sums a lane holds after the fold
+  constexpr int TAIL = BN ? 2 : 4;           // the cell's sums: dbo dfi [dfo dio]
   __shared__ float xs[MAX_SPLIT_ROWS];
   __shared__ float dxs[MAX_SPLIT_ROWS];
   __shared__ float gys[MAX_SPLIT_ROWS];      // the row's output cotangent, this o
   __shared__ float gxs[MAX_SPLIT_ROWS];      // the row's gxq so far, this o
   __shared__ float slot[WARPS][3 * HC];
   __shared__ lut::Cell csm;
+  __shared__ float4 bsm;                     // BN: (mean, g_mean / B, 2 g_var / B)
   __shared__ bool last;
   const int split = blockIdx.x % n_split;
   const int j = blockIdx.x / n_split;
@@ -381,7 +416,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
   const int warp = threadIdx.x >> 5;
   const int row0 = split * split_rows;
   const int n_rows = min(split_rows, batch - row0);
-  const int NQ = 3 * hidden + 4;
+  const int NQ = 3 * hidden + TAIL;
 
   // a row's slots in xs, dxs, gys and gxs are touched by its thread alone
   for (int r = threadIdx.x; r < n_rows; r += THREADS) {
@@ -392,11 +427,20 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
     __syncthreads();                         // the previous o is done with csm
     if (threadIdx.x == 0) {
       const int cell = j * c_out + o;
-      csm = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), __ldg(fo + cell),
-                           __ldg(io + cell), __ldg(bo + cell));
+      if constexpr (BN) {
+        csm = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), 0.0f, 0.0f,
+                             __ldg(bo + cell));
+        const float n = static_cast<float>(batch);
+        bsm = make_float4(__ldg(fo + cell), __fdiv_rn(__ldg(io + cell), n),
+                          __fdiv_rn(__fmul_rn(2.0f, __ldg(g + cell)), n), 0.0f);
+      } else {
+        csm = lut::make_cell(__ldg(fi + cell), __ldg(ii + cell), __ldg(fo + cell),
+                             __ldg(io + cell), __ldg(bo + cell));
+      }
     }
     __syncthreads();
     const lut::Cell cl = csm;
+    const float4 bn = bsm;
     const fq::Width& wi = cl.in;
     const float* w0o = w0 + static_cast<long long>(j) * hidden * c_out + o;  // h at h * c_out
     const float* b0o = b0 + static_cast<long long>(j) * hidden * c_out + o;
@@ -421,7 +465,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
     float s_dbo = 0.0f, s_dfo = 0.0f, s_dio = 0.0f;
     for (int r = threadIdx.x; r < n_rows; r += THREADS) {
       const float xv = xs[r];
-      const float gv = __ldg(g + static_cast<long long>(row0 + r) * c_out + o);
+      const float gv = BN ? 0.0f : __ldg(g + static_cast<long long>(row0 + r) * c_out + o);
       float xq, r_in;
       quant_in(xv, xq, r_in);
       float y = 0.0f;
@@ -432,15 +476,20 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
         y = h == 0 ? p : __fadd_rn(y, p);
       }
       y = __fadd_rn(y, cl.bias);
-      const float r_out = lut::round_out(y, cl);
-      const bool chi = r_out > cl.hi;
-      const bool clo = r_out < -cl.p2;
-      const float gy = (cl.alive_o && !chi && !clo) ? gv : 0.0f;
-      const float dfo_s = chi ? __fmul_rn(LN2, cl.scale_o)
-                              : (clo ? 0.0f : __fmul_rn(LN2, __fsub_rn(y, r_out)));
-      const float dio_s = chi ? __fmul_rn(LN2, cl.p2) : (clo ? __fmul_rn(-LN2, cl.p2) : 0.0f);
-      s_dfo = cl.alive_o ? madd(dfo_s, gv, s_dfo) : s_dfo;
-      s_dio = cl.alive_o ? madd(dio_s, gv, s_dio) : s_dio;
+      float gy;
+      if constexpr (BN) {
+        gy = __fadd_rn(bn.y, __fmul_rn(bn.z, __fsub_rn(y, bn.x)));
+      } else {
+        const float r_out = lut::round_out(y, cl);
+        const bool chi = r_out > cl.hi;
+        const bool clo = r_out < -cl.p2;
+        gy = (cl.alive_o && !chi && !clo) ? gv : 0.0f;
+        const float dfo_s = chi ? __fmul_rn(LN2, cl.scale_o)
+                                : (clo ? 0.0f : __fmul_rn(LN2, __fsub_rn(y, r_out)));
+        const float dio_s = chi ? __fmul_rn(LN2, cl.p2) : (clo ? __fmul_rn(-LN2, cl.p2) : 0.0f);
+        s_dfo = cl.alive_o ? madd(dfo_s, gv, s_dfo) : s_dfo;
+        s_dio = cl.alive_o ? madd(dio_s, gv, s_dio) : s_dio;
+      }
       s_dbo = __fadd_rn(s_dbo, gy);
       gys[r] = gy;
       gxs[r] = 0.0f;
@@ -521,9 +570,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
     fold_half<4>(v, lane);
     fold_half<2>(v, lane);
     fold_half<1>(v, lane);
-    if (lane < 4) slot[warp][lane] = v[0];
+    if (lane < TAIL) slot[warp][lane] = v[0];
     __syncthreads();
-    if (threadIdx.x < 4) {
+    if (threadIdx.x < TAIL) {
       float s = slot[0][threadIdx.x];
 #pragma unroll
       for (int w = 1; w < WARPS; ++w) s = __fadd_rn(s, slot[w][threadIdx.x]);
@@ -532,7 +581,74 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
   }
 
   finish(dw0, db0, dwo, dbo, dfi, dfo, dio, partial, tickets, last, j, c_in, c_out,
-         n_split, hidden);
+         n_split, hidden, BN);
+}
+
+template <int H>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ wo,
+    const float* __restrict__ bo, const float* __restrict__ fi,
+    const float* __restrict__ ii, const float* __restrict__ fo,
+    const float* __restrict__ io, const float* __restrict__ g,
+    float* __restrict__ dx, float* __restrict__ dw0, float* __restrict__ db0,
+    float* __restrict__ dwo, float* __restrict__ dbo, float* __restrict__ dfi,
+    float* __restrict__ dfo, float* __restrict__ dio, float* __restrict__ partial,
+    unsigned* __restrict__ tickets, int batch, int c_in, int c_out, int n_split,
+    int split_rows) {
+  bwd_body<H, false>(x, w0, b0, wo, bo, fi, ii, fo, io, g, dx, dw0, db0, dwo, dbo, dfi, dfo,
+                     dio, partial, tickets, batch, c_in, c_out, n_split, split_rows);
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_dense_bwd_generic(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ wo,
+    const float* __restrict__ bo, const float* __restrict__ fi,
+    const float* __restrict__ ii, const float* __restrict__ fo,
+    const float* __restrict__ io, const float* __restrict__ g,
+    float* __restrict__ dx, float* __restrict__ dw0, float* __restrict__ db0,
+    float* __restrict__ dwo, float* __restrict__ dbo, float* __restrict__ dfi,
+    float* __restrict__ dfo, float* __restrict__ dio, float* __restrict__ partial,
+    unsigned* __restrict__ tickets, int batch, int c_in, int c_out, int n_split,
+    int split_rows, int hidden) {
+  generic_body<false>(x, w0, b0, wo, bo, fi, ii, fo, io, g, dx, dw0, db0, dwo, dbo, dfi, dfo,
+                      dio, partial, tickets, batch, c_in, c_out, n_split, split_rows, hidden);
+}
+
+// The backward of the batch statistics (csrc/lut_dense.cu's
+// lut_bn_stats_kernel) to (g_mean, g_var): B3's grid, scratch and sums
+// with the cotangent of bwd_body's BN mode.  mean, g_mean and g_var are
+// (C_in, C_out); dfo and dio are not written (nullptr).
+template <int H>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_bn_stats_grad_kernel(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ wo,
+    const float* __restrict__ bo, const float* __restrict__ fi,
+    const float* __restrict__ ii, const float* __restrict__ mean,
+    const float* __restrict__ g_mean, const float* __restrict__ g_var,
+    float* __restrict__ dx, float* __restrict__ dw0, float* __restrict__ db0,
+    float* __restrict__ dwo, float* __restrict__ dbo, float* __restrict__ dfi,
+    float* __restrict__ dfo, float* __restrict__ dio, float* __restrict__ partial,
+    unsigned* __restrict__ tickets, int batch, int c_in, int c_out, int n_split,
+    int split_rows) {
+  bwd_body<H, true>(x, w0, b0, wo, bo, fi, ii, mean, g_mean, g_var, dx, dw0, db0, dwo, dbo,
+                    dfi, dfo, dio, partial, tickets, batch, c_in, c_out, n_split, split_rows);
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lut_bn_stats_grad_generic(
+    const float* __restrict__ x, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ wo,
+    const float* __restrict__ bo, const float* __restrict__ fi,
+    const float* __restrict__ ii, const float* __restrict__ mean,
+    const float* __restrict__ g_mean, const float* __restrict__ g_var,
+    float* __restrict__ dx, float* __restrict__ dw0, float* __restrict__ db0,
+    float* __restrict__ dwo, float* __restrict__ dbo, float* __restrict__ dfi,
+    float* __restrict__ dfo, float* __restrict__ dio, float* __restrict__ partial,
+    unsigned* __restrict__ tickets, int batch, int c_in, int c_out, int n_split,
+    int split_rows, int hidden) {
+  generic_body<true>(x, w0, b0, wo, bo, fi, ii, mean, g_mean, g_var, dx, dw0, db0, dwo, dbo,
+                     dfi, dfo, dio, partial, tickets, batch, c_in, c_out, n_split, split_rows,
+                     hidden);
 }
 
 using Kernel = decltype(&lut_dense_bwd_kernel<1>);
@@ -549,6 +665,28 @@ const Kernel kernels[MAX_H] = {
 const void* kernel_for(int hidden) {
   return hidden <= MAX_H ? reinterpret_cast<const void*>(kernels[hidden - 1])
                          : reinterpret_cast<const void*>(lut_dense_bwd_generic);
+}
+
+// bn_kernels[H - 1] is the statistics backward's instantiation for H
+const Kernel bn_kernels[MAX_H] = {
+    lut_bn_stats_grad_kernel<1>,  lut_bn_stats_grad_kernel<2>,  lut_bn_stats_grad_kernel<3>,
+    lut_bn_stats_grad_kernel<4>,  lut_bn_stats_grad_kernel<5>,  lut_bn_stats_grad_kernel<6>,
+    lut_bn_stats_grad_kernel<7>,  lut_bn_stats_grad_kernel<8>,  lut_bn_stats_grad_kernel<9>,
+    lut_bn_stats_grad_kernel<10>, lut_bn_stats_grad_kernel<11>, lut_bn_stats_grad_kernel<12>,
+    lut_bn_stats_grad_kernel<13>, lut_bn_stats_grad_kernel<14>, lut_bn_stats_grad_kernel<15>,
+    lut_bn_stats_grad_kernel<16>};
+
+const void* bn_kernel_for(int hidden) {
+  return hidden <= MAX_H ? reinterpret_cast<const void*>(bn_kernels[hidden - 1])
+                         : reinterpret_cast<const void*>(lut_bn_stats_grad_generic);
+}
+
+// The checks both entry points make of a launch's arguments.
+bool valid_launch(int batch, int c_in, int hidden, int n_split, int split_rows) {
+  return !(hidden < 1 || n_split < 1 || split_rows < 0 || split_rows > MAX_SPLIT_ROWS ||
+           static_cast<long long>(n_split) * split_rows < batch ||
+           (n_split > 1 && static_cast<long long>(n_split - 1) * split_rows >= batch) ||
+           static_cast<long long>(n_split) * c_in > 0x7fffffffLL);
 }
 
 }  // namespace
@@ -578,11 +716,7 @@ extern "C" int lut_dense_backward(
     void* dbo, void* dfi, void* dfo, void* dio, void* partial, void* tickets,
     int batch, int c_in, int hidden, int c_out, int n_split, int split_rows,
     void* stream) {
-  if (hidden < 1 || n_split < 1 || split_rows < 0 ||
-      split_rows > MAX_SPLIT_ROWS ||
-      static_cast<long long>(n_split) * split_rows < batch ||
-      (n_split > 1 && static_cast<long long>(n_split - 1) * split_rows >= batch) ||
-      static_cast<long long>(n_split) * c_in > 0x7fffffffLL)
+  if (!valid_launch(batch, c_in, hidden, n_split, split_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   if (c_in == 0 || c_out == 0) return 0;
   // the generic kernel takes `hidden` as one more argument
@@ -590,6 +724,39 @@ extern "C" int lut_dense_backward(
                   &g,  &dx,  &dw0, &db0,     &dwo,     &dbo,   &dfi,  &dfo,   &dio,
                   &partial, &tickets, &batch, &c_in, &c_out, &n_split, &split_rows, &hidden};
   return static_cast<int>(cudaLaunchKernel(kernel_for(hidden), dim3(n_split * c_in),
+                                           dim3(THREADS), args, 0,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// Resident blocks an SM holds of the statistics backward for `hidden`.
+extern "C" int lut_bn_stats_backward_blocks_per_sm(int hidden) {
+  if (hidden < 1) return 0;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bn_kernel_for(hidden), THREADS,
+                                                    0) != cudaSuccess)
+    return 0;
+  return per_sm;
+}
+
+// The backward of lut_bn_stats: inputs as lut_bn_stats plus its mean and
+// the cotangents g_mean, g_var (c_in, c_out); outputs dx (batch, c_in),
+// dw0/db0/dwo (c_in, hidden, c_out), dbo/dfi (c_in, c_out).  partial:
+// n_split * c_in * (3*hidden + 2) * c_out floats; tickets and splits as
+// lut_dense_backward.
+extern "C" int lut_bn_stats_backward(
+    const void* x, const void* w0, const void* b0, const void* wo, const void* bo,
+    const void* fi, const void* ii, const void* mean, const void* g_mean,
+    const void* g_var, void* dx, void* dw0, void* db0, void* dwo, void* dbo, void* dfi,
+    void* partial, void* tickets, int batch, int c_in, int hidden, int c_out, int n_split,
+    int split_rows, void* stream) {
+  if (!valid_launch(batch, c_in, hidden, n_split, split_rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (c_in == 0 || c_out == 0) return 0;
+  void* none = nullptr;                      // dfo, dio
+  void* args[] = {&x,   &w0,  &b0,      &wo,      &bo,    &fi,   &ii,    &mean,
+                  &g_mean, &g_var, &dx, &dw0, &db0, &dwo, &dbo, &dfi, &none, &none,
+                  &partial, &tickets, &batch, &c_in, &c_out, &n_split, &split_rows, &hidden};
+  return static_cast<int>(cudaLaunchKernel(bn_kernel_for(hidden), dim3(n_split * c_in),
                                            dim3(THREADS), args, 0,
                                            static_cast<cudaStream_t>(stream)));
 }

@@ -10,7 +10,7 @@ Nothing is built at import time.  The launch counters, one plain integer
 per kernel that each wrapper increments where it launches its kernel and
 nowhere else, live in ``repro_torch/tracing.py``; ``LAUNCHES``,
 :func:`count_launch` and :func:`reset_launches` here are the same objects,
-with a counter for each of :data:`SOURCES`.  Both the first-use build and
+with a counter for each of :data:`COUNTERS`.  Both the first-use build and
 load and the counters are safe for threads: serving replicas launch kernels
 from several host threads at once.
 """
@@ -32,11 +32,14 @@ from repro_torch.tracing import LAUNCHES, count_launch, reset_launches  # noqa: 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("fake_quant", "lut_dense", "lut_dense_bwd", "lut_serve")
+# kernels counted apart from their source's first: batch-norm's batch
+# statistics (csrc/lut_dense.cu) and their backward (csrc/lut_dense_bwd.cu)
+COUNTERS = SOURCES + ("lut_bn_stats", "lut_bn_stats_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every kernel's counter reads 0 before its first launch
-LAUNCHES.update(dict.fromkeys(SOURCES, 0))
+LAUNCHES.update(dict.fromkeys(COUNTERS, 0))
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # held across a library's first build and load, so threads that need it at

@@ -10,6 +10,13 @@ constants, weights and x tile in shared memory once, and each lane sums its
 row's cells over ``C_in`` in index order in one register, so the output is
 the plain version's, bit for bit.  Its note says what bounds it on the
 H100.  The plain version is :func:`repro_torch.kernels.ref.lut_dense_ref`.
+
+:func:`lut_bn_stats_fused` launches the same file's ``lut_bn_stats_kernel``:
+train-mode batch-norm's batch statistics of the cell outputs, which
+``core/lut_layers.py`` folds into B2's output projection.  It splits each
+input channel's batch as B3 does (``lut_dense_bwd.launch_plan``, and
+scratch kept as B3 keeps its own); its plain version is
+:func:`repro_torch.kernels.ref.lut_bn_stats_ref`.
 """
 
 from __future__ import annotations
@@ -19,8 +26,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.ref import lut_dense_ref
+from repro_torch.kernels import build, lut_dense_bwd
+from repro_torch.kernels.ref import lut_bn_stats_ref, lut_dense_ref
 
 # what csrc/lut_dense.cu stages (its static_assert and lut_dense_forward_smem
 # hold the kernel to these), and what an H100 SM holds
@@ -107,6 +114,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.lut_dense_forward_smem.restype = ctypes.c_longlong
     lib.lut_dense_error_string.argtypes = [ctypes.c_int]
     lib.lut_dense_error_string.restype = ctypes.c_char_p
+    lib.lut_bn_stats.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.lut_bn_stats.restype = ctypes.c_int
+    lib.lut_bn_stats_blocks_per_sm.argtypes = [ctypes.c_int]
+    lib.lut_bn_stats_blocks_per_sm.restype = ctypes.c_int
+    lib.lut_bn_stats_max_split_rows.argtypes = []
+    lib.lut_bn_stats_max_split_rows.restype = ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
@@ -202,3 +216,38 @@ def _launch(*args):
                                f"{lib.lut_dense_error_string(rc).decode()}")
         build.count_launch("lut_dense")
     return out
+
+
+def lut_bn_stats_fused(x, w0, b0, w_out, b_out, f_in, i_in):
+    """Each cell's mean and population variance over the batch of its raw
+    output (before the output quantizer), ``(mean, var)`` of shape (C_in,
+    C_out); inputs as :func:`lut_dense_fused` without the output widths.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``lut_bn_stats_kernel``, at any H >= 1 and B >= 1.  The first call of a
+    shape on a device queries the card and may allocate scratch, so make it
+    before a CUDA graph capture."""
+    if x.device.type == "cpu":
+        return lut_bn_stats_ref(x, w0, b0, w_out, b_out, f_in, i_in)
+    if x.device.type != "cuda":
+        raise ValueError(f"lut_bn_stats_fused: no kernel for device {x.device}")
+    args = (x, w0, b0, w_out, b_out, f_in, i_in)
+    dev = _check(args)
+    (batch, c_in), (_, hidden, c_out) = x.shape, w0.shape
+    if batch < 1:
+        raise ValueError("lut_bn_stats_fused: the statistics of an empty batch")
+    mean, var = x.new_empty((c_in, c_out)), x.new_empty((c_in, c_out))
+    if c_out:
+        lib = _lib()
+        plan = lut_dense_bwd.plan_for("lut_bn_stats", x.device, (batch, c_in, hidden, c_out),
+                                      lambda: (lib.lut_bn_stats_blocks_per_sm(hidden),
+                                               lib.lut_bn_stats_max_split_rows()), 2)
+        tickets, partial = lut_dense_bwd.workspace("lut_bn_stats", x.device, plan)
+        rc = lib.lut_bn_stats(
+            *(t.data_ptr() for t in args), mean.data_ptr(), var.data_ptr(),
+            partial, tickets, batch, c_in, hidden, c_out, plan.n_split, plan.split_rows,
+            torch._C._cuda_getCurrentRawStream(dev))
+        if rc != 0:
+            raise RuntimeError(f"lut_bn_stats launch failed: "
+                               f"{lib.lut_dense_error_string(rc).decode()}")
+        build.count_launch("lut_bn_stats")
+    return mean, var

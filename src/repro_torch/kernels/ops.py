@@ -10,6 +10,12 @@
 ``lut_dense_train``  takes the continuous bit-width parameters, applies the
                      clip + ``round_ste`` chain of ``core.quant.ste_bits`` and
                      calls ``lut_dense``.
+``lut_bn_stats``     train-mode batch-norm's batch statistics of the cell
+                     outputs, as an ``autograd.Function``: each cell's mean
+                     and population variance over the batch
+                     (``lut_bn_stats_kernel``), and their backward, a
+                     recompute kernel (``lut_bn_stats_grad_kernel``); their
+                     plain versions on CPU tensors.
 ``fake_quant``       kernel B1 (``kernels/fake_quant.py``).
 
 ``launch_counts`` / ``reset_launch_counts`` read and clear the per-kernel
@@ -22,8 +28,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.fake_quant import fake_quant_fused
-from repro_torch.kernels.lut_dense import lut_dense_fused
-from repro_torch.kernels.lut_dense_bwd import lut_dense_bwd_fused
+from repro_torch.kernels.lut_dense import lut_bn_stats_fused, lut_dense_fused
+from repro_torch.kernels.lut_dense_bwd import lut_bn_stats_grad_fused, lut_dense_bwd_fused
 from repro_torch.tracing import launch_counts  # noqa: F401
 from repro_torch.tracing import reset_launches as reset_launch_counts  # noqa: F401
 
@@ -48,6 +54,32 @@ class _LUTDenseFn(torch.autograd.Function):
 def lut_dense(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out):
     """Fused LUT-Dense; shapes as ``ref.lut_dense_ref``, widths integer-valued."""
     return _LUTDenseFn.apply(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out)
+
+
+class _BNStatsFn(torch.autograd.Function):
+    """Batch statistics of the raw cell outputs, and their recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, w0, b0, w_out, b_out, f_in, i_in):
+        mean, var = lut_bn_stats_fused(x, w0, b0, w_out, b_out, f_in, i_in)
+        ctx.save_for_backward(x, w0, b0, w_out, b_out, f_in, i_in, mean)
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        saved = ctx.saved_tensors
+        grads = lut_bn_stats_grad_fused(*saved, g_mean.contiguous(), g_var.contiguous())
+        # i_in has no surrogate under WRAP
+        return (*grads, torch.zeros_like(saved[6]))
+
+
+def lut_bn_stats(x, w0, b0, w_out, b_out, f_in, i_in):
+    """``(mean, var)``, each (C_in, C_out): every cell's mean and population
+    variance over the batch of ``x`` (B, C_in) of its output before the
+    output quantizer; shapes as ``lut_dense`` without the output widths.
+    Gradients reach every input as through the cells' einsum path, the
+    input widths' by the WRAP surrogate."""
+    return _BNStatsFn.apply(x, w0, b0, w_out, b_out, f_in, i_in)
 
 
 def lut_dense_train(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, *,

@@ -85,17 +85,7 @@ def lut_dense_bwd_ref(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, g):
     gradients of :func:`lut_dense_train_ref`; ``di_in`` is identically zero
     under WRAP and left to the caller.
     """
-    b, c_in = x.shape
-    c_out = w0.shape[-1]
-    xb = x.float()[:, :, None].expand(b, c_in, c_out)
-    # forward recompute, the expressions of lut_dense_ref, on the exact
-    # powers of two of its quantizers (pow2, as kernel B3)
-    scale_i = pow2(-f_in)
-    r_in = torch.round(xb / scale_i) * scale_i
-    alive_i = f_in + i_in + 1.0 > 0.0
-    xq = fake_quant_ref(xb, f_in[None], i_in[None], True, "WRAP")
-    h = torch.tanh(xq[:, :, None, :] * w0[None] + b0[None])       # (B, Ci, H, Co)
-    y = _sum_hidden(h * w_out[None]) + b_out[None]                 # (B, Ci, Co)
+    xb, r_in, alive_i, xq, h, y = _recompute(x, w0, b0, w_out, b_out, f_in, i_in)
     scale_o = pow2(-f_out)
     r_out = torch.round(y / scale_o) * scale_o
     p2 = pow2(i_out)
@@ -111,7 +101,35 @@ def lut_dense_bwd_ref(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, g):
     dio_s = torch.where(chi, LOG2 * p2, torch.where(clo, -LOG2 * p2, zero))
     df_out = torch.sum(torch.where(alive_o, dfo_s * gb, zero), dim=0)
     di_out = torch.sum(torch.where(alive_o, dio_s * gb, zero), dim=0)
-    # the tiny-MLP VJP
+    dx, dw0, db0, dw_out, db_out, df_in = _mlp_vjp(xb, r_in, alive_i, xq, h, gy, w0, w_out)
+    return dx, dw0, db0, dw_out, db_out, df_in, df_out, di_out
+
+
+def _recompute(x, w0, b0, w_out, b_out, f_in, i_in):
+    """The backward's forward recompute, the expressions of
+    :func:`lut_dense_ref` on the exact powers of two of its quantizers
+    (``pow2``, as kernel B3): ``(xb, r_in, alive_i, xq, h, y)``, the
+    expanded input, its rounding on the input grid, the live input cells,
+    the WRAPped input, the hidden activations (B, C_in, H, C_out) and the
+    raw cell outputs (B, C_in, C_out)."""
+    b, c_in = x.shape
+    c_out = w0.shape[-1]
+    xb = x.float()[:, :, None].expand(b, c_in, c_out)
+    scale_i = pow2(-f_in)
+    r_in = torch.round(xb / scale_i) * scale_i
+    alive_i = f_in + i_in + 1.0 > 0.0
+    xq = fake_quant_ref(xb, f_in[None], i_in[None], True, "WRAP")
+    h = torch.tanh(xq[:, :, None, :] * w0[None] + b0[None])       # (B, Ci, H, Co)
+    y = _sum_hidden(h * w_out[None]) + b_out[None]                 # (B, Ci, Co)
+    return xb, r_in, alive_i, xq, h, y
+
+
+def _mlp_vjp(xb, r_in, alive_i, xq, h, gy, w0, w_out):
+    """The tiny MLP's VJP and the WRAP input quantizer's surrogate, from the
+    cotangent ``gy`` (B, C_in, C_out) of the raw cell outputs:
+    ``(dx, dw0, db0, dw_out, db_out, df_in)``."""
+    c_out = w0.shape[-1]
+    zero = torch.zeros_like(gy)
     db_out = torch.sum(gy, dim=0)
     gy4 = gy[:, :, None, :]
     dw_out = torch.sum(h * gy4, dim=0)
@@ -125,4 +143,29 @@ def lut_dense_bwd_ref(x, w0, b0, w_out, b_out, f_in, i_in, f_out, i_out, g):
     dx = gx[:, :, 0]
     for o in range(1, c_out):
         dx = dx + gx[:, :, o]
-    return dx, dw0, db0, dw_out, db_out, df_in, df_out, di_out
+    return dx, dw0, db0, dw_out, db_out, df_in
+
+
+def lut_bn_stats_ref(x, w0, b0, w_out, b_out, f_in, i_in):
+    """Plain version of the batch-statistics kernel (``csrc/lut_dense.cu``'s
+    ``lut_bn_stats_kernel``): each cell's mean and population variance
+    (``jnp.var``'s) over the batch of its raw output, the cell of
+    :func:`lut_dense_ref` before its output quantizer.  Shapes as
+    :func:`lut_dense_ref` without the output widths; returns ``(mean,
+    var)``, both (C_in, C_out)."""
+    y = _recompute(x, w0, b0, w_out, b_out, f_in, i_in)[-1]
+    return torch.mean(y, dim=0), torch.var(y, dim=0, correction=0)
+
+
+def lut_bn_stats_grad_ref(x, w0, b0, w_out, b_out, f_in, i_in, mean, g_mean, g_var):
+    """Plain version of the batch statistics' backward (``csrc/
+    lut_dense_bwd.cu``'s ``lut_bn_stats_grad_kernel``): the VJP of
+    :func:`lut_bn_stats_ref` to the cotangents ``(g_mean, g_var)``, which
+    gives each row's raw cell output y the cotangent ``g_mean / B + (2 g_var
+    / B) (y - mean)``, through the tiny MLP and the WRAP surrogate.
+    Returns ``(dx, dw0, db0, dw_out, db_out, df_in)``; ``di_in`` is
+    identically zero under WRAP and left to the caller."""
+    xb, r_in, alive_i, xq, h, y = _recompute(x, w0, b0, w_out, b_out, f_in, i_in)
+    n = float(x.shape[0])
+    gy = g_mean[None] / n + ((2.0 * g_var) / n)[None] * (y - mean[None])
+    return _mlp_vjp(xb, r_in, alive_i, xq, h, gy, w0, w_out)

@@ -28,8 +28,11 @@ Adam-updates the layers' parameters, then writes the batch-norm moving stats
 rate at the step after it, BN stats after Adam).
 
 With ``hp.lut_use_fused`` every layer runs through the fused pair (kernel B2
-forward, kernel B3 backward), except a batch-norm layer in train mode, which
-takes the einsum path and its two fake-quantizers (kernel B1 on the card).
+forward, kernel B3 backward); a batch-norm layer's batch statistics come
+from their own kernel pair first and are folded into B2's output
+projection (``core/lut_layers.py``).  Only a batch-norm layer the fused
+pair does not cover (more hidden layers, relu, other quantizers) takes the
+einsum path and its two fake-quantizers (kernel B1 on the card).
 """
 
 from __future__ import annotations

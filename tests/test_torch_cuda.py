@@ -394,6 +394,43 @@ def test_b3_is_one_device_kernel(device):
     assert len(device_kernels(lambda: lut_dense_bwd_fused(x, *args, g))) == 1
 
 
+@pytest.mark.parametrize("hidden", [8, 20])
+@pytest.mark.parametrize("batch", [16600, 1024])
+def test_bn_stats_pair_matches_plain_and_is_deterministic(device, batch, hidden):
+    """The batch statistics' pair at the JSC layer 0 (16 -> 20, batch-norm)
+    against its plain versions: the statistics within BN_STATS_REL, every
+    gradient within B3_REL, two launches bitwise equal, one device kernel
+    each, and one graph of the pair replayed equal to eager calls."""
+    from chip_smoke import bn_args, bn_check, bn_graph_replay, device_kernels
+    from repro_torch.core.lut_layers import LUTDense
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lut_dense import lut_bn_stats_fused
+    from repro_torch.kernels.lut_dense_bwd import lut_bn_stats_grad_fused
+
+    layer = LUTDense(16, 20, hidden=hidden, use_batchnorm=True, device=device,
+                     generator=torch.Generator().manual_seed(batch + hidden))
+    x, args, cot = bn_args(layer, np.random.default_rng(hidden), batch, device)
+    before = ops.launch_counts()
+    bn_check(f"B={batch} H={hidden}", x, args, cot)       # raises past the tolerances
+    after = ops.launch_counts()
+    assert after["lut_bn_stats"] - before["lut_bn_stats"] == 2
+    assert after["lut_bn_stats_grad"] - before["lut_bn_stats_grad"] == 2
+    mean, _ = lut_bn_stats_fused(x, *args)
+    assert len(device_kernels(lambda: lut_bn_stats_fused(x, *args))) == 1
+    assert len(device_kernels(lambda: lut_bn_stats_grad_fused(x, *args, mean, *cot))) == 1
+    assert bn_graph_replay(x, args, cot)
+
+
+@pytest.mark.parametrize("batch", [1, 31, 4099])
+def test_bn_stats_pair_at_small_and_ragged_batches(device, batch):
+    from chip_smoke import bn_args, bn_check
+    from repro_torch.core.lut_layers import LUTDense
+
+    layer = LUTDense(16, 20, hidden=8, use_batchnorm=True, device=device,
+                     generator=torch.Generator().manual_seed(batch))
+    bn_check(f"B={batch}", *bn_args(layer, np.random.default_rng(batch), batch, device))
+
+
 @pytest.mark.parametrize("step", [0, 1, 29, 30, 99, 100, 150, 199, 1000])
 def test_beta_and_lr_on_card_match_cpu(device, step):
     """The step counter lives on the card (ROADMAP C9), and beta and the
@@ -432,14 +469,17 @@ def test_fused_train_step_on_card_matches_plain(device, monkeypatch):
     ops.reset_launch_counts()
     opt, m = step_fn(init_fn(), batch)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"fake_quant": 2, "lut_dense": 1,
-                                   "lut_dense_bwd": 1, "lut_serve": 0}
+    # layer 0's batch-norm trains on the statistics' pair and B2/B3: no B1
+    assert ops.launch_counts() == chip_smoke.PER_STEP == {
+        "fake_quant": 0, "lut_dense": 2, "lut_dense_bwd": 2, "lut_serve": 0,
+        "lut_bn_stats": 1, "lut_bn_stats_grad": 1}
     assert bool(torch.isfinite(m["loss"]))
 
 
 def test_fused_train_step_past_sixteen_hidden(device, monkeypatch):
     """ROADMAP C10: a train step of a JSC-HLF stack at H = 24 runs B2 and B3
-    (both on their generic instantiations) and matches the plain step."""
+    and the batch statistics' pair (all on their generic instantiations) and
+    matches the plain step."""
     import chip_smoke
     from repro_torch.kernels import ops
     from repro_torch.train.steps import make_lut_train_step
@@ -454,7 +494,7 @@ def test_fused_train_step_past_sixteen_hidden(device, monkeypatch):
     ops.reset_launch_counts()
     _, m = step_fn(init_fn(), batch)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["lut_dense"] == 1 and ops.launch_counts()["lut_dense_bwd"] == 1
+    assert ops.launch_counts() == chip_smoke.PER_STEP
     assert bool(torch.isfinite(m["loss"]))
 
 
@@ -498,8 +538,10 @@ def test_graph_chunks_equal_eager_chunks(device, monkeypatch):
 
 def test_b3_scratch_outgrown_after_capture_keeps_replays_exact(device, monkeypatch):
     """ROADMAP C11: a graph captured with B3's scratch, then a B3 call at
-    H = 32 that outgrows it, then replays: the old scratch must still be
-    there (the replay's tickets and partial sums), so replays equal eager."""
+    H = 32 that outgrows it (20 -> 40: more partial sums than the captured
+    step's widest layer, 16 -> 20), then replays: the old scratch must
+    still be there (the replay's tickets and partial sums), so replays
+    equal eager."""
     import torch
     from repro_torch.core.lut_layers import LUTDense
     from repro_torch.data.pipeline import stack_batches
@@ -523,7 +565,7 @@ def test_b3_scratch_outgrown_after_capture_keeps_replays_exact(device, monkeypat
     oa, _ = graph(oa, chunk(0))                     # captures, then replays
     ob, _ = eager(ob, chunk(0))
     retired = len(lut_dense_bwd._RETIRED)
-    big = LUTDense(20, 5, hidden=32, device=device, generator=torch.Generator().manual_seed(3))
+    big = LUTDense(20, 40, hidden=32, device=device, generator=torch.Generator().manual_seed(3))
     x, args, g = cs.b3_args(big, np.random.default_rng(3), 16600, device)
     lut_dense_bwd.lut_dense_bwd_fused(x, *args, g)  # outgrows the scratch
     assert len(lut_dense_bwd._RETIRED) == retired + 1
@@ -547,8 +589,8 @@ def test_b3_scratch_outgrown_after_capture_keeps_replays_exact(device, monkeypat
 
 def test_graph_replay_launch_count_equals_profiled_kernels(device, monkeypatch):
     """Launches counted for a replay (those recorded at capture, once per
-    replay) equal the device kernels a profile of the replay sees: B1 twice,
-    B2 and B3 once per step."""
+    replay) equal the device kernels a profile of the replay sees: B2 and B3
+    twice and the batch statistics' pair once per step."""
     import torch
     from repro_torch.data.pipeline import stack_batches
     from repro_torch.kernels import ops
@@ -567,15 +609,15 @@ def test_graph_replay_launch_count_equals_profiled_kernels(device, monkeypatch):
 
     ops.reset_launch_counts()
     call()
-    assert ops.launch_counts() == {"fake_quant": 8, "lut_dense": 4, "lut_dense_bwd": 4,
-                                   "lut_serve": 0}    # the warm-up step and one replay
+    # the warm-up step and one replay of 3
+    assert ops.launch_counts() == {n: 4 * c for n, c in cs.PER_STEP.items()}
     ops.reset_launch_counts()
     names = cs.device_kernels(call)
     counted = ops.launch_counts()
-    assert cs.kernel_counts(names) == {"fake_quant": 6, "lut_dense": 3, "lut_dense_bwd": 3}
-    n_calls = counted["lut_dense"] // 3               # profiles taken (device_kernels retries)
-    assert counted == {"fake_quant": 6 * n_calls, "lut_dense": 3 * n_calls,
-                       "lut_dense_bwd": 3 * n_calls, "lut_serve": 0}
+    assert cs.kernel_counts(names) == {n: 3 * c for n, c in cs.PER_STEP.items()
+                                       if n in cs.KERNEL_MARKS}
+    n_calls = counted["lut_dense"] // 6               # profiles taken (device_kernels retries)
+    assert counted == {n: 3 * c * n_calls for n, c in cs.PER_STEP.items()}
 
 
 @pytest.mark.parametrize("slow", ["copy", "get_batch"])

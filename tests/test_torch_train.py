@@ -26,6 +26,11 @@ Tolerances, and why:
   three; at most ``NOISY_FRAC_PER_STEP`` a step is allowed) and held to that
   bound; every other updated parameter holds to ``PARAM_ATOL`` plus 1e-3 of
   itself, and the Adam moments likewise.
+* The batch mean of layer 0's cells carries ``l0/b_out`` one for one (it is
+  added to every row), and that bias moves by noise in both packages (see
+  ``ZERO_GRAD``), so the moving mean is compared after taking out the two
+  runs' ``b_out`` gap, step by step as the moving average took it in
+  (``_walk_steps``' ``bn_shift``); the variance does not see the bias.
 """
 
 import warnings
@@ -288,7 +293,9 @@ def _check_grads(got, want_tree, n_flips):
 def test_lut_dense_train_forward(layer_idx, fused):
     """Outputs, BN ``Aux.updates`` and EBOPs of ``LUTDense`` in train mode
     against ``repro`` ``LUTDense.apply(train=True)``.  Layer 0 has BN, so
-    ``fused`` takes the einsum path there, as in the reference."""
+    ``fused`` takes the batch-statistics pair there, folded into the fused
+    pair (their plain versions on the CPU); the reference's einsum path
+    computes the same statistics."""
     params = _ref_params(3)
     ref_layer = _ref_layers()[layer_idx]
     p = params[f"l{layer_idx}"]
@@ -331,9 +338,11 @@ def _hparams(fused, n_steps):
 def _walk_steps(params, rhp, php, batches):
     """The reference's einsum step and the port's step side by side from
     ``params``, one step per ``(x, y)`` of ``batches``, each step's gradients
-    and metrics checked.  Returns ``(rp, ro, layers, po, noisy, total_flips)``:
-    both packages' states after the last step, the elements whose gradient
-    was noise at some step, and the cell codes flipped on the way."""
+    and metrics checked.  Returns ``(rp, ro, layers, po, noisy, total_flips,
+    bn_shift)``: both packages' states after the last step, the elements
+    whose gradient was noise at some step, the cell codes flipped on the
+    way, and what the two runs' ``l0/b_out`` gap put into the port's moving
+    batch mean beyond the reference's."""
     ref_step, _ = ref_make_step(_ref_layers(), rhp, donate=False)
     layers = _port_layers(params)
     step_fn, init_fn = make_lut_train_step(layers, php)
@@ -343,10 +352,14 @@ def _walk_steps(params, rhp, php, batches):
     po = init_fn()
     noisy = {}
     total_flips = 0
+    bn_shift = np.zeros_like(params["l0"]["bn_mean"])
+    mom = layers[0].bn_momentum
     for s, (x, y) in enumerate(batches):
         batch_r = {"x": jnp.asarray(x), "y": jnp.asarray(y)}
         batch_p = {"x": torch.as_tensor(x), "y": torch.as_tensor(y)}
         rnp = jax.tree_util.tree_map(np.asarray, rp)
+        gap = layers[0].b_out.detach().numpy() - rnp["l0"]["b_out"]
+        bn_shift = mom * bn_shift + (1 - mom) * gap
         n_flips = _n_flips(rnp, layers, x)
         total_flips += n_flips
         loss, ce, ebops, rg = _ref_loss_and_grads(rnp, x, y, rhp.beta, s)
@@ -365,7 +378,7 @@ def _walk_steps(params, rhp, php, batches):
         for k, v in (("loss", loss), ("ce", ce), ("ebops", ebops)):
             assert float(rm[k]) == pytest.approx(v, rel=1e-6)
         _check_metrics(pm, rm, n_flips)
-    return rp, ro, layers, po, noisy, total_flips
+    return rp, ro, layers, po, noisy, total_flips, bn_shift
 
 
 def _check_metrics(pm, rm, n_flips):
@@ -378,9 +391,10 @@ def _check_metrics(pm, rm, n_flips):
                                                    rel=1e-3 if n_flips else 1e-4)
 
 
-def _check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps):
+def _check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps, bn_shift=0.0):
     """The port's parameters, Adam moments and BN stats after ``n_steps``
-    against the reference's, within the module's tolerances."""
+    against the reference's, within the module's tolerances; ``bn_shift``
+    is taken out of the port's moving mean first (``_walk_steps``)."""
     assert int(po["step"]) == int(ro["step"]) == n_steps
     got = interop.stack_params_to_numpy(layers)
     want = jax.tree_util.tree_map(np.asarray, rp)
@@ -404,8 +418,8 @@ def _check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps):
             assert (d <= tol).all(), (f"{name} {path}: max|d| {d.max()} at "
                                       f"{bad.tolist()}: {d[tuple(bad.T)]} > {tol[tuple(bad.T)]}")
     # BN moving stats: written after Adam, from the batch statistics
-    for key in ("bn_mean", "bn_var"):
-        np.testing.assert_allclose(got["l0"][key], want["l0"][key], rtol=1e-5,
+    for key, shift in (("bn_mean", bn_shift), ("bn_var", 0.0)):
+        np.testing.assert_allclose(got["l0"][key] - shift, want["l0"][key], rtol=1e-5,
                                    atol=1e-6 + FLIP_ATOL * total_flips)
         assert not want_opt["m"]["l0"][key].any() and not got_opt["m"]["l0"][key].any()
     # the noisy elements are few: a share of the near-zero gradients, which
@@ -422,9 +436,9 @@ def test_train_steps_match_reference_einsum_step(fused, n_steps):
     params = _ref_params(seed)
     rhp, php = _hparams(fused, n_steps)
     x, y = _batch(seed)
-    rp, ro, layers, po, noisy, total_flips = _walk_steps(params, rhp, php,
-                                                         [(x, y)] * n_steps)
-    _check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps)
+    rp, ro, layers, po, noisy, total_flips, bn_shift = _walk_steps(params, rhp, php,
+                                                                   [(x, y)] * n_steps)
+    _check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps, bn_shift)
 
 
 # ------------------------------------------------------------------ interop

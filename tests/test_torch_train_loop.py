@@ -315,7 +315,8 @@ def test_run_chunked_matches_reference_run_chunked(fused):
         x, y = batches[step]
         return {"x": x, "y": y}
 
-    _, _, walk_layers, walk_opt, noisy, total_flips = tt._walk_steps(params, rhp, php, batches)
+    _, _, walk_layers, walk_opt, noisy, total_flips, bn_shift = tt._walk_steps(
+        params, rhp, php, batches)
     raw_step, _ = ref_make_step(tt._ref_layers(), rhp, jit=False)
     rp0 = jax.tree_util.tree_map(jnp.asarray, params)
     rp, ro, rm = ref_loop.run_chunked(raw_step, rp0, ref_adam.adam_init(rp0), get_batch,
@@ -325,7 +326,7 @@ def test_run_chunked_matches_reference_run_chunked(fused):
     _, po, pm = run_chunked(step_fn, named_params(layers), init_fn(), get_batch, 0,
                             n_steps, chunk_steps=2)
     assert _state_bytes(layers, po) == _state_bytes(walk_layers, walk_opt)
-    tt._check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps)
+    tt._check_final_state(layers, po, rp, ro, noisy, total_flips, n_steps, bn_shift)
     assert pm["loss"].shape == np.asarray(rm["loss"]).shape == (1,)
     tt._check_metrics({k: v[0] for k, v in pm.items()},
                       {k: np.asarray(v)[0] for k, v in rm.items()}, total_flips)
